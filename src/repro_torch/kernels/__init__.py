@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+* :mod:`.gather_pages` — ``gather_pages`` / ``gather_pages_async``.
+* :mod:`.paged_attention` — ``paged_attention`` /
+  ``paged_attention_hot_slots``.
+
+The CUDA sources live in ``csrc/`` and build at first use
+(:mod:`._build`); importing this package compiles nothing.
+"""
+
+from ._build import COUNTERS, counts, reset_counts
+
+__all__ = ["COUNTERS", "counts", "reset_counts"]

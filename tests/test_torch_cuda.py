@@ -1,0 +1,93 @@
+"""Port, on the card: each CUDA kernel against its plain version.
+
+Every test here carries the ``cuda`` marker and skips without a GPU. The
+file imports neither JAX nor the reference, so it runs on a machine with
+PyTorch alone:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.gather_pages import ops as kg  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as ka  # noqa: E402
+
+SHAPES = [  # B/S, Hq, Hkv, dh, page, npps: GQA, MHA, MQA, serving path
+    (2, 8, 2, 64, 16, 4),
+    (1, 4, 4, 32, 8, 8),
+    (3, 4, 1, 128, 32, 2),
+    (8, 16, 2, 128, 16, 129),
+]
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided here, never at import time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the card)")
+    return torch.device("cuda")
+
+
+def _has_valid_token(table, n_valid, lengths, page_size):
+    """Rows with at least one unmasked token. A row with none is 0 from
+    the kernels and the uniform average of V from the plain versions (an
+    all-masked softmax), as in the reference; only live rows compare."""
+    ok = (table >= 0) & (table < n_valid)
+    pos = torch.arange(table.shape[1] * page_size, device=table.device)
+    tok = ok.repeat_interleave(page_size, 1) & (pos[None] < lengths[:, None])
+    return tok.any(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("row", [(16, 2, 128), (3, 7), (5000,)])
+def test_cuda_gather_kernels_bytes_exact(cuda, dtype, row):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pool = (torch.randn((40,) + row, generator=g, device=cuda) * 50).to(dtype)
+    idx = torch.randint(-3, 45, (33,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    want = kg.gather_pages(pool, idx, use_kernel=False)
+    for fn in (kg.gather_pages, kg.gather_pages_async):
+        got = fn(pool, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,dh,ps,npps", SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_attention_kernels_vs_plain(cuda, B, Hq, Hkv, dh, ps, npps,
+                                         dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_pages = B * npps + 3
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q = rnd(B, 1, Hq, dh)
+    kp, vp = rnd(n_pages, ps, Hkv, dh), rnd(n_pages, ps, Hkv, dh)
+    pt = torch.randint(0, n_pages, (B, npps), generator=g, device=cuda,
+                       dtype=torch.int32)
+    pt[0, 0], pt[-1, -1] = -1, n_pages + 5
+    ln = torch.randint(1, ps * npps + 1, (B,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    got = ka.paged_attention(q, kp, vp, pt, ln)
+    want = ka.paged_attention(q, kp, vp, pt, ln, use_kernel=False)
+    torch.cuda.synchronize()
+    live = _has_valid_token(pt, n_pages, ln, ps)
+    assert (got[live].float() - want[live].float()).abs().max().item() <= tol
+    n_slots = npps + 2
+    kh, vh = rnd(B, n_slots, ps, Hkv, dh), rnd(B, n_slots, ps, Hkv, dh)
+    st = torch.randint(-1, n_slots + 1, (B, npps), generator=g, device=cuda,
+                       dtype=torch.int32)
+    hot = ka.paged_attention_hot_slots(q, kh, vh, st, ln)
+    want = ka.paged_attention_hot_slots(q, kh, vh, st, ln, use_kernel=False)
+    base = torch.arange(B, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    gt = torch.where((st >= 0) & (st < n_slots), st + base,
+                     torch.full_like(st, -1))
+    flat = ka.paged_attention(q, kh.reshape(-1, ps, Hkv, dh),
+                              vh.reshape(-1, ps, Hkv, dh), gt, ln)
+    torch.cuda.synchronize()
+    live = _has_valid_token(st, n_slots, ln, ps)
+    assert (hot[live].float() - want[live].float()).abs().max().item() <= tol
+    assert torch.equal(hot, flat)                 # fused == flat, bitwise
