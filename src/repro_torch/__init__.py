@@ -9,8 +9,10 @@ process) are kept as copies here.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that request it raises (see
-:mod:`repro_torch.device`). The four hand-written Hopper kernels live under
-:mod:`repro_torch.kernels` and build at first use with ``nvcc``.
+:mod:`repro_torch.device`). The hand-written Hopper kernels live under
+:mod:`repro_torch.kernels` and build at first use with ``nvcc``; the model
+code (dense family) under :mod:`repro_torch.models`, its configs under
+:mod:`repro_torch.configs`.
 """
 
 __all__ = ["__version__"]

@@ -65,3 +65,62 @@ def tiered_state_from_numpy(state_np: dict, device=None) -> dict:
     if missing:
         raise ValueError(f"tiered state lacks {missing}")
     return {k: tree_from_numpy(state_np[k], device) for k in _TIERED_KEYS}
+
+
+def model_params_from_jax(params_np: dict, cfg, device=None):
+    """The reference's ``init_params`` tree (leaves numpy) as the port's
+    :class:`~repro_torch.models.transformer.Transformer` of ``cfg``.
+
+    The reference stacks the parameters of each position ``p`` of the
+    layer pattern over periods: ``params["period"][p]`` has leaves
+    ``[n_periods, ...]``, and layer ``l`` is period ``l // P`` at position
+    ``l % P`` (``P = cfg.scan_period()``). Each layer's slice goes to
+    ``blocks[l]`` under the same names. Orientation, as in the reference
+    (``[d_in, d_out]``, applied as ``x @ w``), kept as it is:
+
+    * ``embed [V, d]`` (``V`` = ``cfg.padded_vocab``); tied embeddings use
+      its transpose as the head; else ``lm_head [d, V]``;
+    * ``mix.wq [d, Hq*dh]``, ``mix.wk`` / ``mix.wv [d, Hkv*dh]``,
+      ``mix.wo [Hq*dh, d]``; biases ``bq [Hq*dh]``, ``bk`` / ``bv
+      [Hkv*dh]``;
+    * ``ff.wg`` / ``ff.wu [d, d_ff]``, ``ff.wd [d_ff, d]``;
+    * ``norm1`` / ``norm2`` / ``final_norm``: ``scale [d]`` (and ``bias``
+      for layernorm).
+
+    bf16 leaves cross through :func:`array_from_numpy`. Every parameter of
+    the module must be filled, and every leaf used, or this raises.
+    """
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=device, seed=None)
+    P = cfg.scan_period()
+    filled = set()
+
+    def put(name: str, leaf) -> None:
+        t = model.get_parameter(name)
+        a = array_from_numpy(leaf, t.device)
+        if tuple(a.shape) != tuple(t.shape) or a.dtype != t.dtype:
+            raise ValueError(f"{name}: reference leaf {tuple(a.shape)} "
+                             f"{a.dtype} does not fit {tuple(t.shape)} "
+                             f"{t.dtype}")
+        with torch.no_grad():
+            t.copy_(a)
+        filled.add(name)
+
+    def walk(prefix: str, tree, index=None) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v, index)
+            else:
+                put(prefix + k, v if index is None else np.asarray(v)[index])
+
+    put("embed", params_np["embed"])
+    walk("final_norm.", params_np["final_norm"])
+    if "lm_head" in params_np:
+        put("lm_head_w", params_np["lm_head"])
+    for layer in range(cfg.n_layers):
+        walk(f"blocks.{layer}.", params_np["period"][layer % P], layer // P)
+    missing = sorted(set(dict(model.named_parameters())) - filled)
+    if missing:
+        raise ValueError(f"parameters not in the reference tree: {missing}")
+    return model

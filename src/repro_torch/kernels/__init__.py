@@ -2,7 +2,7 @@
 
 * :mod:`.gather_pages` — ``gather_pages`` / ``gather_pages_async``.
 * :mod:`.paged_attention` — ``paged_attention`` /
-  ``paged_attention_hot_slots``.
+  ``paged_attention_hot_slots`` (sync, or ``async_copy=True``).
 
 The CUDA sources live in ``csrc/`` and build at first use
 (:mod:`._build`); importing this package compiles nothing.

@@ -1,12 +1,15 @@
 """Launch wrappers of the CUDA paged-attention kernels
 (``csrc/paged_attention.cu``).
 
-Replaces the Pallas TPU kernels ``paged_attention_fwd`` and
-``paged_attention_hot_slots_fwd`` (``src/repro/kernels/paged_attention/
-kernel.py``). One block per (sequence, KV head) loops the pages in table
-order with an f32 online softmax; the G grouped query heads share each K/V
-page tile in shared memory. The two kernels are one template that differs
-only in how a table entry becomes a page address, so their outputs are
+Replaces the Pallas TPU kernels ``paged_attention_fwd``,
+``paged_attention_hot_slots_fwd`` and ``paged_attention_hot_slots_async_fwd``
+(``src/repro/kernels/paged_attention/kernel.py``). One block per (sequence,
+KV head) loops the pages in table order with an f32 online softmax; the G
+grouped query heads share each K/V page tile in shared memory. The three
+kernels differ only in how a table entry becomes a page address and, for
+the async one, in how the tile reaches shared memory (a 2-stage
+``cp.async`` ring that issues the next valid page before it waits on the
+current one); all run the same per-page update, so their outputs are
 bitwise equal on the same bytes.
 
 Bound on the H100: memory — the K/V bytes of the valid tokens plus q and
@@ -24,6 +27,8 @@ from .. import _build
 
 paged_attention_launches = _build.counter("paged_attention")
 paged_attention_hot_slots_launches = _build.counter("paged_attention_hot_slots")
+paged_attention_hot_slots_async_launches = _build.counter(
+    "paged_attention_hot_slots_async")
 
 _ARGS = [_build.VP] * 6 + [_build.I32] * 7 + [_build.F32, _build.I32,
                                                _build.VP]
@@ -88,12 +93,29 @@ def paged_attention_hot_slots_fwd(q, k_hot, v_hot, slot_table, lengths, *,
     """q [S,Hkv,G,dh]; hot pools [S,n_slots,page,Hkv,dh] read in place;
     slot_table int32 [S,npps] per-stream slot ids; lengths int32 [S].
     Entries < 0 or >= n_slots are masked."""
-    _check(q, k_hot, v_hot, slot_table, lengths, 5,
-           "paged_attention_hot_slots")
+    return _hot_slots("paged_attention_hot_slots_launch",
+                      paged_attention_hot_slots_launches,
+                      "paged_attention_hot_slots", q, k_hot, v_hot,
+                      slot_table, lengths, sm_scale)
+
+
+def paged_attention_hot_slots_async_fwd(q, k_hot, v_hot, slot_table,
+                                        lengths, *,
+                                        sm_scale: float | None = None
+                                        ) -> torch.Tensor:
+    """:func:`paged_attention_hot_slots_fwd` with the K/V page tiles
+    double-buffered by ``cp.async``; bitwise equal to it."""
+    return _hot_slots("paged_attention_hot_slots_async_launch",
+                      paged_attention_hot_slots_async_launches,
+                      "paged_attention_hot_slots_async", q, k_hot, v_hot,
+                      slot_table, lengths, sm_scale)
+
+
+def _hot_slots(entry, counter, name, q, k_hot, v_hot, slot_table, lengths,
+               sm_scale):
+    _check(q, k_hot, v_hot, slot_table, lengths, 5, name)
     if k_hot.shape[0] != q.shape[0]:
-        raise ValueError("paged_attention_hot_slots kernel: hot pools must "
-                         "have one stream per q row")
-    return _launch("paged_attention_hot_slots_launch",
-                   paged_attention_hot_slots_launches,
-                   "paged_attention_hot_slots", q, k_hot, v_hot, slot_table,
+        raise ValueError(f"{name} kernel: hot pools must have one stream "
+                         "per q row")
+    return _launch(entry, counter, name, q, k_hot, v_hot, slot_table,
                    lengths, k_hot.shape[1], k_hot.shape[2], sm_scale)

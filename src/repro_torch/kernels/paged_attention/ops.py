@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import paged_attention_fwd, paged_attention_hot_slots_fwd
+from .kernel import (paged_attention_fwd,
+                     paged_attention_hot_slots_async_fwd,
+                     paged_attention_hot_slots_fwd)
 from .ref import paged_attention_hot_slots_ref, paged_attention_ref
 
 
@@ -41,22 +43,20 @@ def paged_attention_hot_slots(q, k_hot, v_hot, slot_table, lengths, *,
     """Fused hot-slot attention: q [S,1,Hq,dh] vs the per-stream hot pools
     [S,n_slots,page,Hkv,dh] read in place through ``slot_table [S,npps]``.
 
-    Entries < 0 or >= n_slots are masked. ``async_copy=True`` (the
-    double-buffered variant) is not ported yet.
+    Entries < 0 or >= n_slots are masked. ``async_copy=True`` launches the
+    double-buffered kernel, bitwise equal to the sync one; both have the
+    same plain version.
     """
-    if async_copy:
-        raise NotImplementedError(
-            "paged_attention_hot_slots(async_copy=True): ported in a later "
-            "slice; see ROADMAP")
     S, _, Hq, dh = q.shape
     Hkv = k_hot.shape[3]
     qg = q[:, 0].reshape(S, Hkv, Hq // Hkv, dh)
     st = slot_table.to(torch.int32)
     ln = lengths.to(torch.int32)
     if use_kernel and q.is_cuda:
-        o = paged_attention_hot_slots_fwd(qg.contiguous(), k_hot, v_hot,
-                                          st.contiguous(), ln.contiguous(),
-                                          sm_scale=1.0 / dh ** 0.5)
+        fwd = (paged_attention_hot_slots_async_fwd if async_copy
+               else paged_attention_hot_slots_fwd)
+        o = fwd(qg.contiguous(), k_hot, v_hot, st.contiguous(),
+                ln.contiguous(), sm_scale=1.0 / dh ** 0.5)
     else:
         o = paged_attention_hot_slots_ref(qg, k_hot, v_hot, st, ln,
                                           sm_scale=1.0 / dh ** 0.5)

@@ -2,11 +2,17 @@
 ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arrival bursty \\
-      --paged --async-datapath --attn-kernel fused --synthetic
+      --paged --async-datapath --attn-kernel fused-async
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --arrival bursty --paged --async-datapath --attn-kernel fused-async \\
+      --trace t.json
 
+Serves ``--arch`` (default qwen2.5-3b; ``--smoke`` picks its small config)
+through ``ModelExecutor``, or the synthetic executor with ``--synthetic``.
 Runs on the GPU unless ``--device cpu`` is given. Exits non-zero on a
-tiered/flat pin break, on unfinished requests, on a page leak or on a
-page-conservation break. ``--trace`` export, the batch driver, shards,
+tiered/flat pin break, on unfinished requests, on a page leak, on a
+page-conservation break, or with ``--trace`` on trace totals that diverge
+from the pool counters. The batch driver (``--arrival batch``), shards,
 chaos and the §12 lifecycle are ported in later slices.
 """
 
@@ -14,12 +20,18 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.obs.export import (write_chrome_trace, write_jsonl,
+                                    write_request_jsonl)
+from repro_torch.paging.tiered_kv import normalize_attn_kernel
 from repro_torch.serving.engine import (ServeConfig, ServingEngine,
                                         build_executor)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_5_3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's small config instead of its full one")
     ap.add_argument("--arrival", choices=("constant", "bursty", "churn"),
                     default="bursty",
                     help="request arrival process of the continuous engine")
@@ -45,11 +57,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--async-datapath", action="store_true",
                     help="sweep through the issue/wait in-flight ring")
     ap.add_argument("--attn-kernel", default="ref",
-                    choices=("ref", "kernel", "fused"),
-                    help="decode-attention consumer (fused reads the hot "
-                         "slots in place through the hot-slot kernel)")
+                    choices=("ref", "kernel", "fused", "fused-async"),
+                    help="decode-attention consumer (fused / fused-async "
+                         "read the hot slots in place through the hot-slot "
+                         "kernel; fused-async double-buffers its page "
+                         "tiles with cp.async)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write the page-lifecycle and request events as a "
+                         "Chrome trace (Perfetto-loadable) plus .jsonl and "
+                         ".requests.jsonl siblings")
     ap.add_argument("--synthetic", action="store_true",
-                    help="synthetic executor (the only one in this slice)")
+                    help="synthetic executor (hashed K/V, no model)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
@@ -59,19 +77,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is ported in this slice (the model "
-                         "executor comes later; see ROADMAP)")
     scfg = ServeConfig(
         requests=args.requests, slots=args.slots,
         prompt_len=args.prompt_len, gen=args.gen,
         length_jitter=args.length_jitter, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, chunk=args.chunk,
         ring_size=args.ring_size, async_datapath=args.async_datapath,
-        link_budget=args.link_budget, attn_kernel=args.attn_kernel,
-        arrival=args.arrival, seed=args.seed)
-    executor = build_executor(None, seed=args.seed, device=args.device)
-    result = ServingEngine(scfg, executor, device=args.device).run()
+        link_budget=args.link_budget,
+        attn_kernel=normalize_attn_kernel(args.attn_kernel),
+        arrival=args.arrival, seed=args.seed, trace=bool(args.trace))
+    executor = build_executor(None if args.synthetic else args.arch,
+                              smoke=args.smoke, seed=args.seed,
+                              device=args.device)
+    engine = ServingEngine(scfg, executor, device=args.device)
+    result = engine.run()
+    if args.trace:
+        write_chrome_trace(args.trace, engine.events,
+                           request_phases=engine.phases)
+        write_jsonl(args.trace + ".jsonl", engine.events)
+        write_request_jsonl(args.trace + ".requests.jsonl", engine.phases)
+        result["trace_path"] = args.trace
     if not result["tiered_equiv_ok"]:
         print(result)
         raise SystemExit("tiered/flat decode attention mismatch under "
@@ -90,6 +115,9 @@ def main(argv=None) -> dict:
         raise SystemExit("page conservation violated: "
                          f"{result['pages_allocated']} allocated vs "
                          f"{result['pages_recycled']} recycled")
+    if args.trace and not result["trace_totals_ok"]:
+        print(result)
+        raise SystemExit("trace event totals diverge from pool counters")
     print(result)
     return result
 

@@ -1,0 +1,69 @@
+"""GQA attention of the model: one-token decode and causal full-sequence.
+
+Counterpart of ``repro.models.attention``. Both share its contract:
+``q [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` with ``Hq = G*Hkv``; softmax
+statistics in float32; outputs in the input dtype. The reference computes
+these in jnp outside any Pallas kernel, so they are plain PyTorch here
+too. Its TPU layout flags (``attn_bf16``, ``decode_tsh``) stay off, as in
+its default; sliding windows and logit soft-capping wait for the configs
+that use them (ROADMAP queue 1 item 12).
+
+* :func:`decode_attention` — one query position against a ``[B,T,...]``
+  cache, masked to ``length``.
+* :func:`causal_attention` — the whole prompt at once for ``prefill``. It
+  materializes the ``[B,Hkv,G,S,S]`` scores (the reference's
+  ``full_attention``); its blocked online-softmax twin computes the same
+  function and is not needed at the prompt lengths the port prefills in
+  one shot.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B,S,Hq,dh] -> [B,S,Hkv,G,dh]."""
+    B, S, Hq, dh = q.shape
+    return q.reshape(B, S, n_kv, Hq // n_kv, dh)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``."""
+    B, Sq, Hq, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = _split_gqa(q, Hkv).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    s = torch.where(kpos <= qpos, s,
+                    torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: int | torch.Tensor) -> torch.Tensor:
+    """Single-position attention: q [B,1,Hq,dh] vs cache k/v [B,T,Hkv,dh].
+
+    ``length`` (int or ``[B]`` tensor) masks the valid cache prefix.
+    """
+    B, _, Hq, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = _split_gqa(q, Hkv)[:, 0].float()                 # [B,Hkv,G,dh]
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) / math.sqrt(dh)
+    tpos = torch.arange(T, device=q.device)[None, :]
+    # a host int compares as a scalar: no host-to-device copy per step
+    ln = length[:, None] if torch.is_tensor(length) else length
+    msk = tpos < ln                                       # [B or 1, T]
+    s = torch.where(msk[:, None, None, :], s,
+                    torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(B, 1, Hq, dh).to(q.dtype)

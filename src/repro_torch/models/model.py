@@ -1,0 +1,28 @@
+"""build_model: the port's model of a config, its parameters drawn from a
+seed.
+
+Counterpart of ``repro.models.model.build_model``. The reference returns a
+bundle of pure functions over a parameter tree; the port returns the
+:class:`~repro_torch.models.transformer.Transformer` module, whose methods
+are those functions. Dense, MoE-free configs only so far.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .transformer import Transformer
+
+
+def build_model(cfg: ModelConfig, device=None,
+                seed: int | None = 0) -> Transformer:
+    """The model of ``cfg`` on ``device`` (``None``: CUDA), parameters
+    initialised from a ``torch.Generator`` seeded with ``seed`` on that
+    device. ``seed=None`` leaves them uninitialised, for a caller that
+    fills them (``repro_torch.convert.model_params_from_jax``)."""
+    model = Transformer(cfg, device=device)
+    if seed is not None:
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        model.init_params(gen)
+    return model

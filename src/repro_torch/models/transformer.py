@@ -1,0 +1,261 @@
+"""Decoder-only LM, dense family: one block module per layer.
+
+Counterpart of ``repro.models.transformer``. The reference stacks the
+parameters of each position of the layer pattern ``[n_periods, ...]`` and
+scans over periods; eager PyTorch has no use for that, so here every layer
+is its own :class:`Block` and the trunk is a Python loop.
+``repro_torch.convert.model_params_from_jax`` unstacks the reference's
+parameters into this layout.
+
+Entry points, as the reference's: :meth:`Transformer.init_params`,
+:meth:`~Transformer.embed_tokens`, :meth:`~Transformer.lm_head`,
+:meth:`~Transformer.init_decode_state`, :meth:`~Transformer.decode_step`
+(one token + state -> logits + state) and :meth:`~Transformer.prefill`
+(tokens -> last logits + decode state). The decode state is
+``{"blocks": [{"k", "v"} per layer], "pos": int}``, caches
+``[B, T, Hkv, dh]``; ``decode_step`` writes the new K/V into it **in
+place** and advances ``pos`` (the reference returns a new state), which
+saves a cache copy per token. ``pos`` is a host int, so no step waits on
+the device to learn it.
+
+Only what the dense family's qwen2-style configs use is built: attention
+layers with a SwiGLU MLP, RMSNorm, RoPE, full (not sliding-window)
+attention. MoE, Mamba and xLSTM layers, the encoder-decoder family,
+M-RoPE, LayerNorm, GeGLU, sliding windows and logit soft-capping raise
+``NotImplementedError`` (ROADMAP queue 1 items 11-12).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from .attention import causal_attention, decode_attention
+from .config import ModelConfig
+from .layers import (apply_mlp, apply_norm, apply_rotary, dense_init_,
+                     embed_init_, norm_init_, rope_angles)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot build yet."""
+    later = {"the encoder-decoder family": cfg.family == "encdec",
+             f"rope_type={cfg.rope_type!r}": cfg.rope_type != "rope",
+             f"norm={cfg.norm!r}": cfg.norm != "rmsnorm",
+             f"act={cfg.act!r}": cfg.act != "silu",
+             "sliding-window attention": bool(cfg.sliding_window),
+             "attention logit soft-capping": bool(cfg.attn_logit_softcap)}
+    for what, hit in later.items():
+        if hit:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is ported in a later slice (ROADMAP "
+                "queue 1 item 12)")
+    for kind in cfg.layer_kinds():
+        if kind["ff"] == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are ported in a later slice "
+                "(ROADMAP queue 1 item 11)")
+        if kind != {"mix": "attn", "ff": "mlp"}:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind['mix']} layers are ported in a later "
+                "slice (ROADMAP queue 1 item 12)")
+
+
+class Norm(nn.Module):
+    """RMSNorm with a ``scale [d]``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.scale = _param((cfg.d_model,), dtype, device)
+
+    def init_params(self) -> None:
+        norm_init_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(self.scale, x, self.eps)
+
+
+class Attention(nn.Module):
+    """``wq [d, Hq*dh]``, ``wk``/``wv [d, Hkv*dh]``, ``wo [Hq*dh, d]``
+    (``[d_in, d_out]``), with the QKV biases when the config has them."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.head_dim
+        self.n_heads, self.n_kv_heads, self.head_dim = (cfg.n_heads,
+                                                        cfg.n_kv_heads, h)
+        self.wq = _param((d, cfg.n_heads * h), dtype, device)
+        self.wk = _param((d, cfg.n_kv_heads * h), dtype, device)
+        self.wv = _param((d, cfg.n_kv_heads * h), dtype, device)
+        self.wo = _param((cfg.n_heads * h, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _param((cfg.n_heads * h,), dtype, device)
+            self.bk = _param((cfg.n_kv_heads * h,), dtype, device)
+            self.bv = _param((cfg.n_kv_heads * h,), dtype, device)
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def init_params(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, gen)
+        for b in (self.bq, self.bk, self.bv):
+            if b is not None:
+                with torch.no_grad():
+                    b.zero_()
+
+    def qkv(self, y: torch.Tensor, angles: torch.Tensor):
+        """y [B,S,d] -> roped q [B,S,Hq,dh], k/v [B,S,Hkv,dh]."""
+        B, S, _ = y.shape
+        q, k, v = y @ self.wq, y @ self.wk, y @ self.wv
+        if self.bq is not None:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.reshape(B, S, self.n_heads, self.head_dim)
+        k = k.reshape(B, S, self.n_kv_heads, self.head_dim)
+        v = v.reshape(B, S, self.n_kv_heads, self.head_dim)
+        a = angles[None, :, None, :]                     # [1,S,1,half]
+        return apply_rotary(q, a), apply_rotary(k, a), v
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``wg``/``wu [d, d_ff]``, ``wd [d_ff, d]``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.wg = _param((cfg.d_model, cfg.d_ff), dtype, device)
+        self.wu = _param((cfg.d_model, cfg.d_ff), dtype, device)
+        self.wd = _param((cfg.d_ff, cfg.d_model), dtype, device)
+
+    def init_params(self, gen: torch.Generator) -> None:
+        for w in (self.wg, self.wu, self.wd):
+            dense_init_(w, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_mlp(self.wg, self.wu, self.wd, x)
+
+
+class Block(nn.Module):
+    """One layer: ``norm1 -> mix (attention) -> norm2 -> ff (MLP)``, each
+    a residual branch (the reference's parameter tree names)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg, dtype, device)
+        self.mix = Attention(cfg, dtype, device)
+        self.norm2 = Norm(cfg, dtype, device)
+        self.ff = MLP(cfg, dtype, device)
+
+    def init_params(self, gen: torch.Generator) -> None:
+        self.norm1.init_params()
+        self.mix.init_params(gen)
+        self.norm2.init_params()
+        self.ff.init_params(gen)
+
+
+class Transformer(nn.Module):
+    """The dense decoder-only LM of ``cfg``, parameters in ``cfg.dtype`` on
+    ``device`` (``None``: CUDA), left uninitialised until
+    :meth:`init_params` or a conversion fills them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        cfg.validate()
+        check_supported(cfg)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        dt = _dtype(cfg.dtype)
+        self.embed = _param((cfg.padded_vocab, cfg.d_model), dt, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dt, dev)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = Norm(cfg, dt, dev)
+        self.lm_head_w = (None if cfg.tie_embeddings else
+                          _param((cfg.d_model, cfg.padded_vocab), dt, dev))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init_params(self, gen: torch.Generator) -> "Transformer":
+        """Fill every parameter from ``gen`` (a generator on the model's
+        device): embedding N(0, 0.02), dense weights truncated normal at
+        fan-in scale, norm scales 1, biases 0."""
+        embed_init_(self.embed, gen)
+        for blk in self.blocks:
+            blk.init_params(gen)
+        self.final_norm.init_params()
+        if self.lm_head_w is not None:
+            dense_init_(self.lm_head_w, gen)
+        return self
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens.long()]
+
+    def lm_head(self) -> torch.Tensor:
+        """``[d, V]``: the tied embedding's transpose or the head weight."""
+        return self.embed.t() if self.lm_head_w is None else self.lm_head_w
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The lm-head product in the model dtype, then f32."""
+        return (self.final_norm(h) @ self.lm_head()).float()
+
+    def _angles(self, start: int, n: int) -> torch.Tensor:
+        pos = torch.arange(start, start + n, device=self.device)
+        return rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
+
+    def init_decode_state(self, batch_size: int, max_len: int) -> dict:
+        """Zeroed caches ``[B, max_len, Hkv, dh]`` per layer, ``pos`` 0."""
+        sh = (batch_size, max_len, self.cfg.n_kv_heads, self.cfg.head_dim)
+        blocks = [{"k": torch.zeros(sh, dtype=self.dtype, device=self.device),
+                   "v": torch.zeros(sh, dtype=self.dtype, device=self.device)}
+                  for _ in self.blocks]
+        return {"blocks": blocks, "pos": 0}
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, state: dict):
+        """One token for every stream: ``token [B]`` -> ``(logits [B, V]
+        float32, state)``; the state is updated in place."""
+        pos = state["pos"]
+        x = self.embed_tokens(token[:, None])              # [B,1,D]
+        B = x.shape[0]
+        angles = self._angles(pos, 1)
+        for blk, st in zip(self.blocks, state["blocks"]):
+            q, k, v = blk.mix.qkv(blk.norm1(x), angles)
+            st["k"][:, pos] = k[:, 0]
+            st["v"][:, pos] = v[:, 0]
+            o = decode_attention(q, st["k"], st["v"], pos + 1)
+            x = x + o.reshape(B, 1, -1) @ blk.mix.wo
+            x = x + blk.ff(blk.norm2(x))
+        state["pos"] = pos + 1
+        return self._logits(x[:, 0]), state
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int):
+        """``tokens [B, S]`` -> ``(last-token logits [B, V] float32, decode
+        state at pos = S)``, the whole prompt in one causal pass."""
+        B, S = tokens.shape
+        x = self.embed_tokens(tokens)
+        angles = self._angles(0, S)
+        state = self.init_decode_state(B, max_len)
+        for blk, st in zip(self.blocks, state["blocks"]):
+            q, k, v = blk.mix.qkv(blk.norm1(x), angles)
+            o = causal_attention(q, k, v)
+            x = x + o.reshape(B, S, -1) @ blk.mix.wo
+            x = x + blk.ff(blk.norm2(x))
+            st["k"][:, :S] = k
+            st["v"][:, :S] = v
+        state["pos"] = S
+        return self._logits(x[:, -1]), state

@@ -10,7 +10,8 @@ streams at once, then moves the bytes through one gather-kernel call per
 K/V leaf (``gather_pages`` on the sync path, ``gather_pages_async`` on the
 async path). Attention then reads the hot tier: unfused through the
 stacked pool and the flat kernel (``"kernel"``) or its plain version
-(``"ref"``), or in place through the hot-slot kernel (``"fused"``).
+(``"ref"``), or in place through the hot-slot kernel (``"fused"``) or its
+``cp.async`` double-buffered twin (``"fused_async"``).
 
 Functions return new state dicts. Two write into the state they are given:
 :func:`tiered_sweep` writes the copied pages into the hot tier's K/V
@@ -315,11 +316,16 @@ def tiered_slot_table(state: dict, page_rows: torch.Tensor
 ATTN_KERNEL_MODES = ("ref", "kernel", "fused", "fused_async")
 
 
-def check_attn_kernel(mode: str) -> str:
-    """Return ``mode`` if it is one of :data:`ATTN_KERNEL_MODES`, else raise."""
-    if mode not in ATTN_KERNEL_MODES:
+def normalize_attn_kernel(mode: str) -> str:
+    """Normalize an ``attn_kernel`` selector to one of
+    :data:`ATTN_KERNEL_MODES`, accepting the CLI spelling
+    (``"fused-async"`` -> ``"fused_async"``); raise on anything else. (The
+    reference also takes its legacy bools; no caller of the port passes
+    one.)"""
+    m = str(mode).replace("-", "_")
+    if m not in ATTN_KERNEL_MODES:
         raise ValueError(f"attn_kernel={mode!r} not in {ATTN_KERNEL_MODES}")
-    return mode
+    return m
 
 
 def tiered_attention(q: torch.Tensor, state: dict, page_rows: torch.Tensor,
@@ -327,12 +333,13 @@ def tiered_attention(q: torch.Tensor, state: dict, page_rows: torch.Tensor,
     """Decode attention ``q [S,1,Hq,dh]`` served from the hot tier.
 
     ``"ref"`` / ``"kernel"``: the unfused path over the stacked
-    ``[S * n_slots, ...]`` pool (plain version / flat kernel). ``"fused"``:
-    the hot-slot kernel reads the per-stream pools in place. On resident
-    bytes all of them equal the flat-pool attention bitwise. Returns
+    ``[S * n_slots, ...]`` pool (plain version / flat kernel). ``"fused"`` /
+    ``"fused_async"``: the hot-slot kernel (sync or ``cp.async``) reads the
+    per-stream pools in place. On resident bytes all of them equal the
+    flat-pool attention bitwise. Returns
     ``(out [S,1,Hq,dh], all_resident)``.
     """
-    mode = check_attn_kernel(attn_kernel)
+    mode = normalize_attn_kernel(attn_kernel)
     hot = state["hot"]
     if mode in ("fused", "fused_async"):
         table, ok = tiered_slot_table_local(state, page_rows)

@@ -2,11 +2,12 @@
 
 from .engine import (PINNED_COUNTERS, ServeConfig, ServingEngine,
                      build_executor, serve_continuous)
-from .executor import SyntheticExecutor
+from .executor import ModelExecutor, SyntheticExecutor
 from .request import DECODE, FINISHED, PREFILL, WAITING, Request
 from .scheduler import AdmissionQueue, SlotScheduler
 
 __all__ = ["PINNED_COUNTERS", "ServeConfig", "ServingEngine",
-           "build_executor", "serve_continuous", "SyntheticExecutor",
+           "build_executor", "serve_continuous", "ModelExecutor",
+           "SyntheticExecutor",
            "DECODE", "FINISHED", "PREFILL", "WAITING", "Request",
            "AdmissionQueue", "SlotScheduler"]

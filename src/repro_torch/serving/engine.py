@@ -7,8 +7,9 @@ stream's hot tier, sweeps the decoding slots' context pages through the
 Leap-managed hot pools and pins hot-tier attention **bitwise** against the
 flat-pool attention for every active row, then evicts finished requests.
 
-The pin compares like with like: ``attn_kernel="fused"`` and ``"kernel"``
-against the flat kernel, ``"ref"`` against the flat plain version. The
+The pin compares like with like: ``attn_kernel="fused"``, ``"fused_async"``
+and ``"kernel"`` against the flat kernel, ``"ref"`` against the flat plain
+version. The
 per-step query comes from a ``torch.Generator`` seeded with ``1000 + t``.
 The engine updates its cold pool and tiered state in place between steps.
 A sharded cold pool and the §12 migration lifecycle are ported in later
@@ -30,7 +31,7 @@ from repro_torch.obs.trace import (Event, RequestPhase, decode_sweep_events,
                                    events_to_counts, summary_events)
 from repro_torch.paging.kv_cache import (PageAllocator, init_paged_kv,
                                          paged_decode_attention)
-from repro_torch.paging.tiered_kv import (TieredKV, check_attn_kernel,
+from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
                                           tiered_attention, tiered_init,
                                           tiered_invalidate, tiered_min_slots,
                                           tiered_reset_stream, tiered_stats,
@@ -192,7 +193,7 @@ class ServingEngine:
                 async_datapath=self.cfg.async_datapath,
                 link_budget=self.cfg.link_budget)
             sp.sync = info
-        mode = check_attn_kernel(self.cfg.attn_kernel)
+        mode = normalize_attn_kernel(self.cfg.attn_kernel)
         with self.reg.span("tiered_attention") as sp:
             tiered, resident = tiered_attention(q, self.tstate, rows_t,
                                                 lengths_t, attn_kernel=mode)
@@ -225,7 +226,9 @@ class ServingEngine:
             if req.state == PREFILL:
                 n = min(self.cfg.prefill_chunk,
                         req.prompt_len - req.prefilled)
-                k, v, tok = self.ex.prefill_chunk(req, n)
+                with self.reg.span("prefill_chunk") as sp:
+                    k, v, tok = self.ex.prefill_chunk(req, n)
+                    sp.sync = k
                 pages = self._write_tokens(req, k, v, req.prefilled)
                 written.extend((req.slot, p) for p in pages)
                 req.advance_prefill(n, t)
@@ -348,21 +351,28 @@ class ServingEngine:
 
 
 def serve_continuous(config: ServeConfig, executor=None, arch: str = None,
-                     device=None) -> dict:
-    """Build an executor (synthetic only in this slice) and run once."""
+                     smoke: bool = True, device=None) -> dict:
+    """Build an executor (real model or synthetic), run the engine once.
+
+    ``arch=None`` uses the synthetic executor — real scheduling, paging
+    and pins over hashed K/V bytes.
+    """
     if executor is None:
-        executor = build_executor(arch, seed=config.seed, device=device)
+        executor = build_executor(arch, smoke=smoke, seed=config.seed,
+                                  device=device)
     return ServingEngine(config, executor, device=device).run()
 
 
-def build_executor(arch: str | None, seed: int = 0, device=None):
-    """The synthetic executor of the reference's ``build_executor(None)``;
-    a real model executor is ported in a later slice."""
-    from .executor import SyntheticExecutor
+def build_executor(arch: str | None, smoke: bool = True, seed: int = 0,
+                   device=None):
+    """The real :class:`ModelExecutor` for ``arch`` (its smoke config with
+    ``smoke``), or :class:`SyntheticExecutor` for ``None``."""
+    from repro_torch import configs as cfglib
 
-    if arch is not None:
-        raise NotImplementedError(
-            f"build_executor({arch!r}): the model executor is ported in a "
-            "later slice; use arch=None (the synthetic executor)")
-    return SyntheticExecutor(n_kv_heads=2, head_dim=8, seed=seed,
-                             device=device)
+    from .executor import ModelExecutor, SyntheticExecutor
+
+    if arch is None:
+        return SyntheticExecutor(n_kv_heads=2, head_dim=8, seed=seed,
+                                 device=device)
+    cfg = cfglib.get_smoke_config(arch) if smoke else cfglib.get_config(arch)
+    return ModelExecutor(cfg, seed=seed, device=device)

@@ -1,6 +1,17 @@
-"""Synthetic executor: the serving data path without a model.
+"""Model executors: per-request token production for the serving engine.
 
-Counterpart of ``repro.serving.executor.SyntheticExecutor``. Its K/V bytes
+Counterpart of ``repro.serving.executor``. Two implementations:
+
+* :class:`ModelExecutor` — the real model. Each request owns a batch-1
+  decode state; chunked prefill feeds prompt tokens one by one through the
+  same ``decode_step`` the decode path uses, and the chunk that consumes
+  the last prompt token emits the first output token (greedy argmax). The
+  K/V it hands the engine to mirror into the paged pool are the roped K/V
+  of the first attention layer at the input token's position.
+* :class:`SyntheticExecutor` — no model: hashed K/V keyed by
+  ``(seed, request, position)`` and counter tokens.
+
+The synthetic executor's K/V bytes
 depend only on ``(seed, req_id, position)``, so they do not change with
 the prefill chunking or the slot a request lands in. PyTorch has no
 ``fold_in``; the bytes come from a counter-based hash written in torch
@@ -17,6 +28,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.model import build_model
 
 from .request import Request
 
@@ -95,3 +107,113 @@ class SyntheticExecutor:
         pos = req.prefilled + req.decoded - 1
         k, v = self._kv(req, pos, 1)
         return k[0], v[0], (req.req_id + req.decoded) % 251
+
+
+class ModelExecutor:
+    """Real model, batch-1 per-request decode states, chunked prefill.
+
+    ``model``: a built :class:`~repro_torch.models.transformer.Transformer`
+    of ``cfg`` (for example converted from the reference's parameters);
+    by default one is built on ``device`` with parameters from ``seed``.
+    Prompt tokens come from a CPU ``torch.Generator`` keyed by
+    ``(seed + 1, req_id)``; the reference draws them with ``jax.random``,
+    so ``prompts`` (``{req_id: int sequence}``) may hand them over instead.
+
+    ``n_q_heads`` is the model's query-head count, so the engine's per-step
+    pin draws queries of the model's GQA shape (the reference's executor
+    leaves it unset, and its engine then draws ``Hkv`` heads).
+    """
+
+    def __init__(self, cfg, seed: int = 0, device=None, model=None,
+                 prompts: dict | None = None):
+        self.cfg = cfg
+        if model is None:
+            model = build_model(cfg, device=device, seed=seed)
+        elif model.dtype != getattr(torch, str(cfg.dtype)):
+            raise ValueError(f"model dtype {model.dtype} is not the "
+                             f"config's {cfg.dtype}")
+        self.model = model
+        self.device = model.device
+        self.seed = seed
+        self._given = {int(k): v for k, v in (prompts or {}).items()}
+        self._states: dict[int, dict] = {}
+        self._prompts: dict[int, torch.Tensor] = {}
+        self._last_tok: dict[int, torch.Tensor] = {}
+        self.last_logits: dict[int, torch.Tensor] = {}
+        self.n_kv_heads = cfg.n_kv_heads
+        self.n_q_heads = cfg.n_heads
+        self.head_dim = cfg.head_dim
+        self.dtype = str(model.dtype).removeprefix("torch.")
+
+    def prompt_tokens(self, req: Request) -> torch.Tensor:
+        """``int64 [prompt_len]`` on the model's device."""
+        if req.req_id not in self._prompts:
+            toks = self._given.get(req.req_id)
+            if toks is None:
+                g = torch.Generator().manual_seed(
+                    (self.seed + 1) * 1_000_003 + req.req_id)
+                toks = torch.randint(0, self.cfg.vocab_size,
+                                     (req.prompt_len,), generator=g)
+            toks = (toks.long() if torch.is_tensor(toks)
+                    else torch.tensor(toks, dtype=torch.long))
+            if toks.shape != (req.prompt_len,):
+                raise ValueError(f"request {req.req_id}: prompt of shape "
+                                 f"{tuple(toks.shape)}, expected "
+                                 f"({req.prompt_len},)")
+            self._prompts[req.req_id] = toks.to(self.device)
+        return self._prompts[req.req_id]
+
+    def begin(self, req: Request) -> None:
+        self.prompt_tokens(req)
+        self._states[req.req_id] = self.model.init_decode_state(1,
+                                                                req.max_len)
+
+    def end(self, req: Request) -> None:
+        self._states.pop(req.req_id, None)
+        self._prompts.pop(req.req_id, None)
+        self._last_tok.pop(req.req_id, None)
+        self.last_logits.pop(req.req_id, None)
+
+    def _feed(self, req: Request, token: torch.Tensor):
+        """One ``decode_step`` on ``token [1]``: ``(logits [V], k, v)``,
+        k/v ``[Hkv, dh]`` the first attention layer's roped K/V written for
+        the input token at its position (views of the cache; every layer of
+        the dense model is an attention layer, so it is layer 0)."""
+        state = self._states[req.req_id]
+        pos = state["pos"]
+        logits, state = self.model.decode_step(token, state)
+        blk = state["blocks"][0]
+        return logits[0], blk["k"][0, pos], blk["v"][0, pos]
+
+    def _emit(self, req: Request, logits: torch.Tensor) -> int:
+        tok = torch.argmax(logits)
+        self._last_tok[req.req_id] = tok.reshape(1)
+        self.last_logits[req.req_id] = logits
+        return int(tok)
+
+    def prefill_chunk(self, req: Request, n: int):
+        """Consume ``n`` prompt tokens; K/V ``[n, Hkv, dh]``; the first
+        output token when the prompt is exhausted."""
+        prompt = self.prompt_tokens(req)
+        ks, vs = [], []
+        logits = None
+        for j in range(req.prefilled, req.prefilled + n):
+            logits, k, v = self._feed(req, prompt[j:j + 1])
+            ks.append(k)
+            vs.append(v)
+        tok = None
+        if req.prefilled + n >= req.prompt_len:
+            tok = self._emit(req, logits)
+        return torch.stack(ks), torch.stack(vs), tok
+
+    def decode(self, req: Request):
+        """Consume the last emitted token, emit the next one."""
+        logits, k, v = self._feed(req, self._last_tok[req.req_id])
+        return k.clone(), v.clone(), self._emit(req, logits)
+
+    def oneshot_prefill_logits(self, req: Request) -> torch.Tensor:
+        """Reference: ``prefill`` over the same prompt in one shot (the
+        chunked-prefill equivalence oracle; ``[V]`` float32)."""
+        logits, _ = self.model.prefill(self.prompt_tokens(req)[None],
+                                       req.max_len)
+        return logits[0]

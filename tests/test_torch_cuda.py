@@ -20,6 +20,9 @@ SHAPES = [  # B/S, Hq, Hkv, dh, page, npps: GQA, MHA, MQA, serving path
     (3, 4, 1, 128, 32, 2),
     (8, 16, 2, 128, 16, 129),
 ]
+# head dims whose bf16 rows are 8, 12 and 6 bytes: the async kernel's
+# 8-byte, 4-byte and element-wise copy paths
+ODD_ROWS = [(2, 4, 2, 4, 8, 3), (3, 4, 2, 6, 8, 3), (2, 2, 1, 3, 4, 5)]
 
 
 @pytest.fixture
@@ -91,3 +94,61 @@ def test_cuda_attention_kernels_vs_plain(cuda, B, Hq, Hkv, dh, ps, npps,
     live = _has_valid_token(st, n_slots, ln, ps)
     assert (hot[live].float() - want[live].float()).abs().max().item() <= tol
     assert torch.equal(hot, flat)                 # fused == flat, bitwise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Hq,Hkv,dh,ps,npps", SHAPES + ODD_ROWS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_async_hot_slots_vs_plain_and_bitwise(cuda, S, Hq, Hkv, dh, ps,
+                                                    npps, dtype, tol):
+    """The cp.async kernel against the plain version on poisoned tables
+    (and, with more than one stream, an all-masked row and a length-0
+    row), and bitwise equal to the sync hot-slot and flat kernels."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    n_slots = npps + 2
+    q = rnd(S, 1, Hq, dh)
+    kh, vh = rnd(S, n_slots, ps, Hkv, dh), rnd(S, n_slots, ps, Hkv, dh)
+    st = torch.randint(-1, n_slots + 1, (S, npps), generator=g, device=cuda,
+                       dtype=torch.int32)
+    st[0, 0] = n_slots + 3
+    ln = torch.randint(1, ps * npps + 1, (S,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    if S > 1:
+        st[-1] = -1                                   # all masked
+        ln[1] = 0                                     # nothing to attend
+    got = ka.paged_attention_hot_slots(q, kh, vh, st, ln, async_copy=True)
+    sync = ka.paged_attention_hot_slots(q, kh, vh, st, ln)
+    want = ka.paged_attention_hot_slots(q, kh, vh, st, ln, use_kernel=False)
+    base = torch.arange(S, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    gt = torch.where((st >= 0) & (st < n_slots), st + base,
+                     torch.full_like(st, -1))
+    flat = ka.paged_attention(q, kh.reshape(-1, ps, Hkv, dh),
+                              vh.reshape(-1, ps, Hkv, dh), gt, ln)
+    torch.cuda.synchronize()
+    live = _has_valid_token(st, n_slots, ln, ps)
+    if live.any():
+        err = (got[live].float() - want[live].float()).abs().max().item()
+        assert err <= tol
+    assert torch.equal(got, sync) and torch.equal(got, flat)
+    assert not got[~live].any()                   # masked rows are 0
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_decode_step_is_finite(cuda):
+    """qwen2.5-3b at full width in bf16 (random weights from a seed):
+    a few decode steps give finite logits of the vocabulary's width."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    cfg = configs.get_config("qwen2_5_3b")
+    model = build_model(cfg, device=cuda, seed=0)
+    assert model.dtype == torch.bfloat16
+    state = model.init_decode_state(1, 8)
+    for t in (1, 2, 3):
+        logits, state = model.decode_step(
+            torch.tensor([t], device=cuda), state)
+    torch.cuda.synchronize()
+    assert logits.shape == (1, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    assert state["pos"] == 3

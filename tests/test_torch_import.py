@@ -28,7 +28,9 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert "repro_torch.serving.engine" in mods
+    for m in ("repro_torch.serving.engine", "repro_torch.models.transformer",
+              "repro_torch.configs.qwen2_5_3b", "repro_torch.obs.export"):
+        assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -79,14 +81,32 @@ def test_entry_points_without_gpu_raise_unless_cpu_asked(monkeypatch):
     ServingEngine(ServeConfig(), ex, device="cpu")
 
 
+def test_model_entry_points_without_gpu_raise_unless_cpu_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serving import ModelExecutor, build_executor
+    cfg = configs.get_smoke_config("qwen2_5_3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelExecutor(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_executor("qwen2_5_3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    ex = build_executor("qwen2_5_3b", device="cpu")
+    assert isinstance(ex, ModelExecutor) and ex.device.type == "cpu"
+
+
 def test_cli_without_gpu_fails_and_chip_smoke_refuses_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU failure cannot be shown")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--synthetic", "--requests", "1"], env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0 and "device='cpu'" in res.stderr
+    for extra in (["--synthetic"], ["--smoke"]):
+        res = subprocess.run([sys.executable, "-m",
+                              "repro_torch.launch.serve", "--requests", "1",
+                              *extra], env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode != 0 and "device='cpu'" in res.stderr
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, timeout=300,
                          cwd=tmp_path)

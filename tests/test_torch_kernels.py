@@ -115,19 +115,51 @@ class TestPagedAttentionPlain:
                                   vh.reshape(S * n_slots, ps, Hkv, dh), gt, ln)
         assert torch.equal(hot, flat)
 
-    def test_async_copy_not_ported(self):
-        z = torch.zeros((1, 1, 2, 4))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ka.paged_attention_hot_slots(z, torch.zeros((1, 2, 2, 2, 4)),
-                                         torch.zeros((1, 2, 2, 2, 4)),
-                                         torch.zeros((1, 1), dtype=torch.int32),
-                                         torch.ones(1, dtype=torch.int32),
-                                         async_copy=True)
+    def test_async_copy_on_cpu_counts_no_launch(self):
+        """On CPU tensors ``async_copy=True`` takes the plain version and
+        adds nothing to any kernel's launch count."""
+        from repro_torch.kernels import _build
+        rng = np.random.default_rng(4)
+        q = torch.from_numpy(rng.standard_normal((2, 1, 4, 8))).float()
+        kh = torch.from_numpy(rng.standard_normal((2, 3, 2, 2, 8))).float()
+        vh = torch.from_numpy(rng.standard_normal((2, 3, 2, 2, 8))).float()
+        st = torch.tensor([[2, -1], [0, 7]], dtype=torch.int32)
+        ln = torch.tensor([4, 3], dtype=torch.int32)
+        _build.reset_counts()
+        ka.paged_attention_hot_slots(q, kh, vh, st, ln, async_copy=True)
+        assert set(_build.counts().values()) == {0}
+
+    @pytest.mark.parametrize("S,Hq,Hkv,dh,ps,npps", SHAPES)
+    def test_async_hot_slots_vs_jax_ref_and_sync_kernel(self, S, Hq, Hkv,
+                                                        dh, ps, npps):
+        """The async variant against the JAX plain version and the JAX
+        sync hot-slot Pallas kernel (interpret mode) at 2e-5 in f32, on
+        poisoned slot tables. The JAX async kernel does not run on this
+        JAX, so it is no oracle here; both JAX kernels share one contract
+        and are bitwise equal where they run."""
+        rng = np.random.default_rng(5)
+        n_slots = npps + 2
+        q = _normal(rng, (S, 1, Hq, dh), jnp.float32)
+        kh = _normal(rng, (S, n_slots, ps, Hkv, dh), jnp.float32)
+        vh = _normal(rng, (S, n_slots, ps, Hkv, dh), jnp.float32)
+        st = rng.integers(0, n_slots, (S, npps)).astype(np.int32)
+        st[0, -1] = -1
+        st[-1, 0] = n_slots + 4
+        ln = rng.integers(ps + 1, ps * npps + 1, S).astype(np.int32)
+        args = [jnp.asarray(a) for a in (q, kh, vh, st, ln)]
+        got = ka.paged_attention_hot_slots(
+            *(array_from_numpy(a, "cpu") for a in (q, kh, vh, st, ln)),
+            async_copy=True).numpy()
+        for want in (j_hot(*args, use_kernel=False),
+                     j_hot(*args, interpret=True)):
+            np.testing.assert_allclose(got, _f32(want), atol=2e-5,
+                                       rtol=2e-5)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.gather_pages.kernel import gather_pages_fwd
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_fwd, paged_attention_hot_slots_async_fwd)
     with pytest.raises(ValueError, match="CUDA"):
         gather_pages_fwd(torch.zeros((4, 2)), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
@@ -136,4 +168,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             torch.zeros((2, 2, 1, 4)),
                             torch.zeros((1, 1), dtype=torch.int32),
                             torch.ones(1, dtype=torch.int32))
-
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_hot_slots_async_fwd(
+            torch.zeros((1, 1, 1, 4)), torch.zeros((1, 2, 2, 1, 4)),
+            torch.zeros((1, 2, 2, 1, 4)),
+            torch.zeros((1, 1), dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))

@@ -5,9 +5,12 @@ drives both engines at the same small configuration; the comparison is on
 integers only — admissions and request phases, TTFT steps, page
 allocations and recycles, the pinned counter totals, the event log and the
 per-step tiered/flat pin. (The two frameworks draw the per-step query from
-different generators, so float outputs are not compared here.)
+different generators, so float outputs are not compared here.) With the
+model executors (the reference's parameters converted, its prompt tokens
+handed over) the emitted tokens are compared as well.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -23,8 +26,9 @@ from repro.serving.engine import ServeConfig as JCfg  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro.paging.tiered_kv import tiered_stats as j_stats  # noqa: E402
 from repro_torch.paging.tiered_kv import tiered_stats as t_stats  # noqa: E402
-from repro_torch.serving import (PINNED_COUNTERS, ServeConfig,  # noqa: E402
-                                 ServingEngine, SyntheticExecutor)
+from repro_torch.serving import (PINNED_COUNTERS, ModelExecutor,  # noqa: E402
+                                 ServeConfig, ServingEngine,
+                                 SyntheticExecutor)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,6 +87,10 @@ def test_engine_integers_match_jax(async_dp, mode, budget):
     jrep = jeng.run()
     teng = ServingEngine(ServeConfig(**kw), NumpyExecutor(), device="cpu")
     trep = teng.run()
+    _assert_engines_agree(jeng, jrep, teng, trep)
+
+
+def _assert_engines_agree(jeng, jrep, teng, trep):
     assert jrep["tiered_equiv_ok"] and trep["tiered_equiv_ok"]
     for key in ("steps", "requests_finished", "tokens_decoded",
                 "pages_allocated", "pages_recycled", "alloc_in_use_end",
@@ -97,6 +105,76 @@ def test_engine_integers_match_jax(async_dp, mode, budget):
     assert _totals(jeng, j_stats) == _totals(teng, t_stats)
     assert jeng.reg.histogram("ttft_steps").samples == \
         teng.reg.histogram("ttft_steps").samples
+
+
+class TokenLog:
+    """Wraps an executor; logs each emitted token with the gap between
+    its logit and the runner-up's."""
+
+    def __init__(self, ex):
+        self.ex, self.log = ex, []
+
+    def __getattr__(self, name):
+        return getattr(self.ex, name)
+
+    def _note(self, req, out):
+        if out[2] is not None:
+            top2 = np.sort(np.asarray(self.ex.last_logits[req.req_id]))[-2:]
+            self.log.append((req.req_id, out[2], float(top2[1] - top2[0])))
+        return out
+
+    def prefill_chunk(self, req, n):
+        return self._note(req, self.ex.prefill_chunk(req, n))
+
+    def decode(self, req):
+        return self._note(req, self.ex.decode(req))
+
+
+MODEL_CFG = dict(CFG, prompt_len=6, gen=3, requests=4, seed=3,
+                 async_datapath=True)
+
+
+@pytest.fixture(scope="module")
+def jax_model_run():
+    """The JAX engine with the reference ``ModelExecutor`` (smoke
+    qwen2.5-3b, f32) under ``attn_kernel="fused"``: its async Pallas
+    kernel does not run on this JAX, and the engine's integer outcomes do
+    not depend on the attention mode. Executor seed 1: its nine emitted
+    tokens lead their runner-up by 0.0195 or more (seed 0's by as little
+    as 0.0006, a near tie)."""
+    import jax
+    from repro import configs as jcfg
+    from repro.serving.executor import ModelExecutor as JExecutor
+    jex = JExecutor(jcfg.get_smoke_config("qwen2_5_3b"), seed=1)
+    jeng = JEngine(JCfg(use_kernel=False, attn_kernel="fused",
+                        **MODEL_CFG), TokenLog(jex))
+    prompts = {r.req_id: np.asarray(jex.prompt_tokens(r))
+               for r in jeng.queue._pending}
+    jrep = jeng.run()
+    params = jax.tree.map(np.asarray, jex.params)
+    return jeng, jrep, params, prompts
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_async"])
+def test_model_engine_matches_jax(jax_model_run, mode):
+    """The port's engine with the port's ``ModelExecutor`` against the JAX
+    engine: the integers exactly, and the same emitted tokens. Each
+    compared token's top-2 logit gap must exceed the 5e-3 model
+    tolerance, so a near tie fails here loudly instead of flaking."""
+    from repro_torch import configs as tcfg
+    from repro_torch.convert import model_params_from_jax
+    jeng, jrep, params, prompts = jax_model_run
+    cfg = tcfg.get_smoke_config("qwen2_5_3b")
+    tex = ModelExecutor(cfg, device="cpu", prompts=prompts,
+                        model=model_params_from_jax(params, cfg, "cpu"))
+    teng = ServingEngine(ServeConfig(attn_kernel=mode, **MODEL_CFG),
+                         TokenLog(tex), device="cpu")
+    trep = teng.run()
+    _assert_engines_agree(jeng, jrep, teng, trep)
+    jlog, tlog = jeng.ex.log, teng.ex.log
+    assert len(jlog) == trep["tokens_decoded"] > 0
+    assert min(gap for _, _, gap in jlog) > 5e-3
+    assert [(r, t) for r, t, _ in tlog] == [(r, t) for r, t, _ in jlog]
 
 
 def test_synthetic_executor_bytes_depend_only_on_key():
@@ -148,3 +226,45 @@ def test_cli_exits_zero_on_cpu(extra):
                          timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "'tiered_equiv_ok': True" in res.stdout
+
+
+def test_model_cli_fused_async_writes_the_trace(tmp_path):
+    """The model CLI (smoke qwen2.5-3b on the CPU) through fused-async
+    with ``--trace``: exits 0, and the Chrome trace and JSONL siblings hold
+    the run's events and request phases."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = tmp_path / "t.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+           "--device", "cpu", "--attn-kernel", "fused-async",
+           "--async-datapath", "--paged", "--arrival", "bursty",
+           "--requests", "3", "--slots", "2", "--prompt-len", "6", "--gen",
+           "3", "--prefill-chunk", "4", "--trace", str(out)]
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "'tiered_equiv_ok': True" in res.stdout
+    trace = json.loads(out.read_text())
+    kinds = {e.get("cat") for e in trace["traceEvents"]}
+    assert {"admit", "prefill_chunk", "decode", "evict"} <= kinds
+    events = out.with_name("t.json.jsonl").read_text().splitlines()
+    phases = out.with_name("t.json.requests.jsonl").read_text().splitlines()
+    assert events and all(json.loads(e)["kind"] for e in events)
+    assert len(phases) == len([e for e in trace["traceEvents"]
+                               if e.get("pid") == 2 and e["ph"] != "M"])
+
+
+def test_chrome_trace_matches_the_reference_writer(tmp_path):
+    """The port's Chrome trace of one engine run equals the reference
+    writer's on the same events and request phases, less the reference's
+    fabric-link process (the port has no link counters)."""
+    from repro.obs.export import to_chrome_trace
+    from repro_torch.obs.export import write_chrome_trace
+    eng = ServingEngine(ServeConfig(**CFG, async_datapath=True),
+                        NumpyExecutor(), device="cpu")
+    eng.run()
+    out = tmp_path / "t.json"
+    write_chrome_trace(str(out), eng.events, request_phases=eng.phases)
+    want = to_chrome_trace(eng.events, request_phases=eng.phases)
+    want["traceEvents"] = [e for e in want["traceEvents"]
+                           if e.get("pid") != 1]
+    assert json.loads(out.read_text()) == json.loads(json.dumps(want))
