@@ -37,7 +37,7 @@ ALIASES = {
 }
 
 #: configs ported so far
-PORTED = ("qwen2_5_3b",)
+PORTED = ("qwen2_5_3b", "jamba_v01_52b")
 
 
 def canonical(arch: str) -> str:

@@ -84,6 +84,12 @@ def model_params_from_jax(params_np: dict, cfg, device=None):
       ``mix.wo [Hq*dh, d]``; biases ``bq [Hq*dh]``, ``bk`` / ``bv
       [Hkv*dh]``;
     * ``ff.wg`` / ``ff.wu [d, d_ff]``, ``ff.wd [d_ff, d]``;
+    * Mamba mixers: ``mix.w_in [d, 2*di]``, ``mix.conv [K, di]``,
+      ``mix.w_xdbc [di, dt_rank + 2N]``, ``mix.w_dt [dt_rank, di]``,
+      ``mix.w_out [di, d]``, and ``mix.dt_bias [di]``, ``mix.a_log
+      [di, N]``, ``mix.d_skip [di]`` in float32;
+    * MoE feed-forwards: ``ff.wr [d, E]``, ``ff.wg`` / ``ff.wu [E, d, F]``,
+      ``ff.wd [E, F, d]``;
     * ``norm1`` / ``norm2`` / ``final_norm``: ``scale [d]`` (and ``bias``
       for layernorm).
 

@@ -1,30 +1,56 @@
-"""Serving CLI of the port: the continuous-batching subset of
-``repro.launch.serve``.
+"""Serving CLI of the port: ``repro.launch.serve`` on one shard.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arrival bursty \\
-      --paged --async-datapath --attn-kernel fused-async
+Two serving disciplines, as in the reference:
+
+* ``--arrival batch`` (default) — the lock-step loop: prefill the whole
+  batch, greedy-decode ``--gen`` tokens, and with ``--paged`` replay the
+  decode window through the tiered paged-KV data path
+  (:func:`repro_torch.serving.batch_driver.serve_batch_tiered`) with the
+  tiered/flat bitwise pin every step.
+* ``--arrival constant|bursty|churn`` — the continuous-batching engine
+  (:class:`repro_torch.serving.engine.ServingEngine`) through
+  ``ModelExecutor``, or the synthetic executor with ``--synthetic``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \\
+      --smoke --device cpu --batch 2 --prompt-len 16 --gen 4 --paged \\
+      --async-datapath --attn-kernel fused-async --page-size 4
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --arrival bursty --paged --async-datapath --attn-kernel fused-async \\
       --trace t.json
 
-Serves ``--arch`` (default qwen2.5-3b; ``--smoke`` picks its small config)
-through ``ModelExecutor``, or the synthetic executor with ``--synthetic``.
-Runs on the GPU unless ``--device cpu`` is given. Exits non-zero on a
-tiered/flat pin break, on unfinished requests, on a page leak, on a
-page-conservation break, or with ``--trace`` on trace totals that diverge
-from the pool counters. The batch driver (``--arrival batch``), shards,
-chaos and the §12 lifecycle are ported in later slices.
+Serves ``--arch`` (default qwen2.5-3b; ``--smoke`` picks its small
+config, ``--layers`` cuts its depth). Runs on the GPU unless ``--device
+cpu`` is given. Exits non-zero on a tiered/flat pin break, with
+``--trace`` on trace totals that diverge from the pool counters, and on
+the continuous path on unfinished requests, a page leak or a
+page-conservation break. ``--shards > 1``, ``--chaos`` and the §12
+lifecycle are ported in later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
+import numpy as np
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.device import resolve_device
+from repro_torch.models.model import build_model
 from repro_torch.obs.export import (write_chrome_trace, write_jsonl,
                                     write_request_jsonl)
+from repro_torch.obs.metrics import Registry
 from repro_torch.paging.tiered_kv import normalize_attn_kernel
+from repro_torch.runtime.straggler import StepTimeMonitor
+from repro_torch.serving.batch_driver import (check_one_shard,
+                                              serve_batch_tiered)
 from repro_torch.serving.engine import (ServeConfig, ServingEngine,
                                         build_executor)
+from repro_torch.serving.executor import ModelExecutor
+
+ARRIVALS = ("batch", "constant", "bursty", "churn")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,9 +58,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="qwen2_5_3b")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's small config instead of its full one")
-    ap.add_argument("--arrival", choices=("constant", "bursty", "churn"),
-                    default="bursty",
-                    help="request arrival process of the continuous engine")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the config's first N layers (a depth cut; "
+                         "widths unchanged), e.g. 8 for one Jamba block "
+                         "of jamba_v01_52b, whose 32 layers do not fit "
+                         "one card")
+    ap.add_argument("--arrival", choices=ARRIVALS, default="batch",
+                    help="'batch' = the lock-step full-batch loop; the rest "
+                         "drive the continuous engine with that arrival "
+                         "process")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch: requests prefilled and decoded together")
+    ap.add_argument("--streams", type=int, default=1,
+                    help="batch, with --paged: page streams (stream s "
+                         "sweeps request s %% batch); 1 = one per request")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="batch: cold-pool shards; > 1 is not ported yet")
+    ap.add_argument("--chaos", default=None, metavar="SPEC.json",
+                    help="batch: chaos sidecar; not ported yet")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
                     help="concurrent serving slots (tiered streams)")
@@ -52,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pages/step the shared link moves across all "
                          "streams' prefetches (demand first)")
     ap.add_argument("--paged", action="store_true",
-                    help="accepted for the reference's spelling: the engine "
-                         "always serves through the tiered paged-KV path")
+                    help="batch: replay the decode window through the "
+                         "tiered paged-KV path, pinned to the flat pool; "
+                         "the continuous engine always serves through it")
     ap.add_argument("--async-datapath", action="store_true",
                     help="sweep through the issue/wait in-flight ring")
     ap.add_argument("--attn-kernel", default="ref",
@@ -76,7 +118,107 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.trace and not (args.paged or args.arrival != "batch"):
+        ap.error("--trace requires --paged (only the tiered data path "
+                 "emits the page-lifecycle info arrays)")
+    if args.chaos and not args.paged:
+        ap.error("--chaos requires --paged")
+    if args.arrival == "batch":
+        return _main_batch(args)
+    return _main_continuous(args)
+
+
+def model_config(args):
+    """``--arch`` (its smoke config with ``--smoke``), cut to ``--layers``."""
+    cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
+           else cfglib.get_config(args.arch))
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def _prompts(seed: int, B: int, prompt_len: int, vocab: int) -> torch.Tensor:
+    """``int64 [B, prompt_len]`` from a CPU generator seeded ``seed + 1``
+    (the reference draws them with ``jax.random``)."""
+    g = torch.Generator().manual_seed(seed + 1)
+    return torch.randint(0, vocab, (B, prompt_len), generator=g)
+
+
+def _main_batch(args, model=None, prompts=None) -> dict:
+    """The lock-step path: batched prefill + greedy decode (+ the tiered
+    replay). ``model`` (a built model, for example of a depth-cut config)
+    and ``prompts`` (``[batch, prompt_len]``) may be handed in; by default
+    the model of ``--arch`` is built with parameters from ``--seed`` and
+    the prompts come from ``--seed + 1``. The result carries the
+    reference's keys plus the emitted ``tokens``."""
+    dev = resolve_device(args.device)
+    check_one_shard(args)
+    if model is None:
+        model = build_model(model_config(args), device=dev, seed=args.seed)
+    cfg = model.cfg
+    B, prompt_len = args.batch, args.prompt_len
+    max_len = prompt_len + args.gen
+    if prompts is None:
+        prompts = _prompts(args.seed, B, prompt_len, cfg.vocab_size)
+    if not torch.is_tensor(prompts):
+        prompts = torch.tensor(np.asarray(prompts))
+    prompts = prompts.long().to(model.device)
+    if prompts.shape != (B, prompt_len):
+        raise ValueError(f"prompts of shape {tuple(prompts.shape)}, "
+                         f"expected ({B}, {prompt_len})")
+
+    reg = Registry()
+    with reg.span("prefill") as sp:
+        logits, state = model.prefill(prompts, max_len)
+        tok = torch.argmax(logits, -1)
+        sp.sync = tok
+    t_prefill = reg.histogram("prefill").samples[-1]
+
+    out = [tok]
+    mon = StepTimeMonitor()
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        with reg.span("token_latency") as sp:
+            logits, state = model.decode_step(tok, state)
+            tok = torch.argmax(logits, -1)
+            sp.sync = tok
+        mon.record(reg.histogram("token_latency").samples[-1])
+        out.append(tok)
+    t_decode = time.perf_counter() - t0
+    tokens = torch.stack(out, 1).cpu()
+    rnd = lambda d: {k: round(v, 5) if isinstance(v, float) else v
+                     for k, v in d.items()}
+    result = {
+        "prefill_s": round(t_prefill, 3),
+        # TTFT: the first token is emitted by prefill's final logits
+        "ttft_s": round(t_prefill, 3),
+        "decode_tok_per_s": round(B * (args.gen - 1) / max(t_decode, 1e-9),
+                                  1),
+        "token_latency": rnd(reg.histogram("token_latency").ladder()),
+        "tokens_shape": list(tokens.shape),
+        "tokens": tokens.tolist(),
+        "step_time_monitor": rnd(mon.summary()),
+    }
+    if args.paged:
+        result.update(serve_batch_tiered(cfg, state, args, B, prompt_len,
+                                         max_len, reg=reg,
+                                         trace_path=args.trace))
+        if not result["tiered_equiv_ok"]:
+            print(result)
+            raise SystemExit("tiered/flat decode attention mismatch (first "
+                             "bad decode step "
+                             f"{result['tiered_first_bad_step']})")
+        if args.trace and not result["trace_totals_ok"]:
+            print(result)
+            raise SystemExit("trace event totals diverge from pool counters")
+    print(result)
+    return result
+
+
+def _main_continuous(args) -> dict:
+    """The continuous-batching engine over the request lifecycle."""
     scfg = ServeConfig(
         requests=args.requests, slots=args.slots,
         prompt_len=args.prompt_len, gen=args.gen,
@@ -86,9 +228,10 @@ def main(argv=None) -> dict:
         link_budget=args.link_budget,
         attn_kernel=normalize_attn_kernel(args.attn_kernel),
         arrival=args.arrival, seed=args.seed, trace=bool(args.trace))
-    executor = build_executor(None if args.synthetic else args.arch,
-                              smoke=args.smoke, seed=args.seed,
-                              device=args.device)
+    executor = (build_executor(None, seed=args.seed, device=args.device)
+                if args.synthetic else
+                ModelExecutor(model_config(args), seed=args.seed,
+                              device=args.device))
     engine = ServingEngine(scfg, executor, device=args.device)
     result = engine.run()
     if args.trace:

@@ -2,19 +2,18 @@
 
 Counterpart of ``repro.models.attention``. Both share its contract:
 ``q [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` with ``Hq = G*Hkv``; softmax
-statistics in float32; outputs in the input dtype. The reference computes
-these in jnp outside any Pallas kernel, so they are plain PyTorch here
-too. Its TPU layout flags (``attn_bf16``, ``decode_tsh``) stay off, as in
-its default; sliding windows and logit soft-capping wait for the configs
-that use them (ROADMAP queue 1 item 12).
+statistics in float32; outputs in the input dtype. Its TPU layout flags
+(``attn_bf16``, ``decode_tsh``) stay off, as in its default; sliding
+windows and logit soft-capping wait for the configs that use them (ROADMAP
+queue 1 item 12).
 
 * :func:`decode_attention` — one query position against a ``[B,T,...]``
-  cache, masked to ``length``.
-* :func:`causal_attention` — the whole prompt at once for ``prefill``. It
-  materializes the ``[B,Hkv,G,S,S]`` scores (the reference's
-  ``full_attention``); its blocked online-softmax twin computes the same
-  function and is not needed at the prompt lengths the port prefills in
-  one shot.
+  cache, masked to ``length``; plain PyTorch, as the reference's is jnp.
+* :func:`causal_attention` — the whole prompt at once for ``prefill``: the
+  reference's ``blocked_attention``, whose docstring names the Pallas
+  flash kernel as its twin. Here it is that kernel's port
+  (:func:`repro_torch.kernels.flash_attention.flash_attention`): the CUDA
+  kernel for CUDA tensors, the exact-softmax plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -35,17 +36,7 @@ def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``."""
-    B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    qg = _split_gqa(q, Hkv).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(dh)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    s = torch.where(kpos <= qpos, s,
-                    torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+    return flash_attention(q, k, v, causal=True)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,143 @@
+"""Mamba (S6) selective state-space mixer: prefill through the scan kernel,
+one-token decode through the step recurrence.
+
+Counterpart of ``repro.models.mamba``. in_proj -> (x, z); causal depthwise
+conv over the sequence; data-dependent (dt, B, C) projections; the
+selective scan ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``,
+``y_t = C_t h_t + D x_t``; gated output ``y * silu(z)``; out_proj.
+
+:func:`apply_mamba` always takes the reference's kernel route
+(``REPRO_OPT=sscan_kernel``, ``models/mamba.py:88-104`` there): the (dt, B,
+C) projections for the whole sequence, then
+:func:`repro_torch.kernels.selective_scan.selective_scan` — the CUDA kernel
+for CUDA tensors, the step recurrence for CPU tensors — then the ``D`` skip
+term and the ``silu(z)`` gate; its final state is the decode carry. The
+reference's default lax.scan route computes the same function in chunks
+for training memory; the port has no training path.
+
+Parameters are a mapping with the reference's leaf names and
+orientation (``[d_in, d_out]``): ``w_in [d, 2*di]``, ``conv [K, di]``,
+``w_xdbc [di, dt_rank + 2N]``, ``w_dt [dt_rank, di]``, ``dt_bias [di]``,
+``a_log [di, N]``, ``d_skip [di]``, ``w_out [di, d]``; ``a_log``,
+``dt_bias`` and ``d_skip`` are float32 whatever the model dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.selective_scan import selective_scan
+
+#: parameter leaves kept in float32 whatever the model dtype
+F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+
+
+def mamba_dims(d_model: int, expand: int, d_state: int):
+    """``(d_inner, dt_rank, d_state)``."""
+    di = expand * d_model
+    dt_rank = -(-d_model // 16)
+    return di, dt_rank, d_state
+
+
+def mamba_shapes(d_model: int, expand: int, d_state: int,
+                 d_conv: int) -> dict:
+    """Leaf name -> shape."""
+    di, dt_rank, N = mamba_dims(d_model, expand, d_state)
+    return {"w_in": (d_model, 2 * di), "w_xdbc": (di, dt_rank + 2 * N),
+            "w_dt": (dt_rank, di), "w_out": (di, d_model),
+            "conv": (d_conv, di), "a_log": (di, N), "dt_bias": (di,),
+            "d_skip": (di,)}
+
+
+def mamba_init_(p: dict, gen: torch.Generator) -> dict:
+    """Fill ``p`` in place with the reference's distributions (not its
+    bits): dense weights truncated normal at fan-in scale, ``conv``
+    N(0, 1/K), S4D-real ``a_log = log(1..N)``, ``dt_bias`` so that
+    softplus(dt) spans (1e-3, 1e-1), ``d_skip`` 1."""
+    from .layers import dense_init_
+    for name in ("w_in", "w_xdbc", "w_dt", "w_out"):
+        dense_init_(p[name], gen)
+    K, di = p["conv"].shape
+    N = p["a_log"].shape[1]
+    dev = p["conv"].device
+    with torch.no_grad():
+        conv = torch.randn((K, di), generator=gen, device=dev)
+        p["conv"].copy_(conv / math.sqrt(K))
+        p["a_log"].copy_(torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=dev))[None, :].expand(di, N))
+        u = torch.rand((di,), generator=gen, device=dev)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        p["dt_bias"].copy_(torch.log(torch.expm1(dt)))
+        p["d_skip"].fill_(1.0)
+    return p
+
+
+def _dbc(p: dict, xc: torch.Tensor, dt_rank: int, N: int):
+    """conv'd activations -> (dt [.., di], B [.., N], C [.., N]) in f32."""
+    dbc = (xc @ p["w_xdbc"]).float()
+    dt_lowrank, b, c = torch.split(dbc, [dt_rank, N, N], dim=-1)
+    dt = F.softplus(dt_lowrank @ p["w_dt"].float() + p["dt_bias"])
+    return dt, b, c
+
+
+def _gate_out(p: dict, y_s: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``(y_s + D x) * silu(z)`` in f32, cast, then out_proj."""
+    y = y_s + xc.float() * p["d_skip"]
+    y = (y * F.silu(z.float())).to(dtype)
+    return y @ p["w_out"]
+
+
+def apply_mamba(p: dict, x: torch.Tensor, d_state: int,
+                return_state: bool = False):
+    """Prefill: ``x [B,S,D] -> y [B,S,D]``; with ``return_state`` also the
+    decode carry ``{"conv": [B,K-1,di], "h": [B,di,N] f32}`` at step S."""
+    B, S, _ = x.shape
+    dt_rank = p["w_dt"].shape[0]
+    N = d_state
+    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)                 # [B,S,di]
+    K = p["conv"].shape[0]
+    xpad = F.pad(xi, (0, 0, K - 1, 0))                       # causal pad on S
+    xc = sum(xpad[:, k:k + S] * p["conv"][k] for k in range(K))
+    xc = F.silu(xc)
+    dt, bb, cc = _dbc(p, xc, dt_rank, N)
+    a = -torch.exp(p["a_log"])
+    y_s, h_fin = selective_scan(dt, bb, cc, xc.float(), a, return_state=True)
+    out = _gate_out(p, y_s, xc, z, x.dtype)
+    if not return_state:
+        return out
+    conv_tail = xpad[:, S:S + K - 1]
+    return out, {"conv": conv_tail.to(p["conv"].dtype), "h": h_fin}
+
+
+def mamba_state_init(batch: int, p: dict, d_state: int) -> dict:
+    """Zeroed decode carry of one layer."""
+    di = p["w_in"].shape[1] // 2
+    K = p["conv"].shape[0]
+    dev = p["conv"].device
+    return {"conv": torch.zeros((batch, K - 1, di), dtype=p["conv"].dtype,
+                                device=dev),
+            "h": torch.zeros((batch, di, d_state), dtype=torch.float32,
+                             device=dev)}
+
+
+def mamba_decode_step(p: dict, x: torch.Tensor, state: dict, d_state: int
+                      ) -> tuple[torch.Tensor, dict]:
+    """One token ``x [B,1,D]`` -> ``(y [B,1,D], new state)``; the state is
+    :func:`mamba_state_init`'s or :func:`apply_mamba`'s carry."""
+    dt_rank = p["w_dt"].shape[0]
+    N = d_state
+    xi, z = (x[:, 0] @ p["w_in"]).chunk(2, dim=-1)           # [B,di]
+    hist = torch.cat([state["conv"], xi[:, None]], 1)        # [B,K,di]
+    xc = F.silu(torch.einsum("bkd,kd->bd", hist, p["conv"]))
+    dt, b, c = _dbc(p, xc, dt_rank, N)
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dt[..., None] * a)
+    h = da * state["h"] + dt[..., None] * b[:, None, :] \
+        * xc.float()[..., None]
+    y_s = torch.einsum("bdn,bn->bd", h, c)
+    return _gate_out(p, y_s, xc, z, x.dtype)[:, None], \
+        {"conv": hist[:, 1:], "h": h}

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family: one block module per layer.
+"""Decoder-only LM, dense and hybrid families: one block module per layer.
 
 Counterpart of ``repro.models.transformer``. The reference stacks the
 parameters of each position of the layer pattern ``[n_periods, ...]`` and
@@ -12,17 +12,22 @@ Entry points, as the reference's: :meth:`Transformer.init_params`,
 :meth:`~Transformer.init_decode_state`, :meth:`~Transformer.decode_step`
 (one token + state -> logits + state) and :meth:`~Transformer.prefill`
 (tokens -> last logits + decode state). The decode state is
-``{"blocks": [{"k", "v"} per layer], "pos": int}``, caches
-``[B, T, Hkv, dh]``; ``decode_step`` writes the new K/V into it **in
-place** and advances ``pos`` (the reference returns a new state), which
-saves a cache copy per token. ``pos`` is a host int, so no step waits on
-the device to learn it.
+``{"blocks": [one dict per layer], "pos": int}``: an attention layer holds
+its caches ``{"k", "v"}`` ``[B, T, Hkv, dh]``, a Mamba layer its carry
+``{"conv" [B, K-1, di], "h" [B, di, N] float32}``. ``decode_step`` updates
+the per-layer dicts **in place** (K/V written into the caches) and
+advances ``pos`` (the reference returns a new state), which saves a cache
+copy per token. ``pos`` is a host int, so no step waits on the device to
+learn it.
 
-Only what the dense family's qwen2-style configs use is built: attention
-layers with a SwiGLU MLP, RMSNorm, RoPE, full (not sliding-window)
-attention. MoE, Mamba and xLSTM layers, the encoder-decoder family,
+What is built: the dense family's qwen2-style configs (attention layers
+with a SwiGLU MLP, RMSNorm, RoPE) and the hybrid family of jamba (Mamba or
+attention mixers, MLP or MoE feed-forwards, ``rope_type="none"``).
+Prefill attention goes through the flash-attention kernel on the card;
+Mamba prefill through the selective-scan kernel. The MoE family's configs
+(ROADMAP queue 1 item 11), xLSTM layers, the encoder-decoder family,
 M-RoPE, LayerNorm, GeGLU, sliding windows and logit soft-capping raise
-``NotImplementedError`` (ROADMAP queue 1 items 11-12).
+``NotImplementedError`` (items 11-12).
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from .attention import causal_attention, decode_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rotary, dense_init_,
                      embed_init_, norm_init_, rope_angles)
+from .mamba import (F32_LEAVES, apply_mamba, mamba_decode_step, mamba_init_,
+                    mamba_shapes, mamba_state_init)
+from .moe import apply_moe
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -50,7 +58,7 @@ def _dtype(name) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot build yet."""
     later = {"the encoder-decoder family": cfg.family == "encdec",
-             f"rope_type={cfg.rope_type!r}": cfg.rope_type != "rope",
+             f"rope_type={cfg.rope_type!r}": cfg.rope_type == "mrope",
              f"norm={cfg.norm!r}": cfg.norm != "rmsnorm",
              f"act={cfg.act!r}": cfg.act != "silu",
              "sliding-window attention": bool(cfg.sliding_window),
@@ -61,11 +69,13 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {what} is ported in a later slice (ROADMAP "
                 "queue 1 item 12)")
     for kind in cfg.layer_kinds():
-        if kind["ff"] == "moe":
+        if kind["ff"] == "moe" and (cfg.family != "hybrid"
+                                    or cfg.n_shared_experts):
             raise NotImplementedError(
-                f"{cfg.name}: MoE layers are ported in a later slice "
-                "(ROADMAP queue 1 item 11)")
-        if kind != {"mix": "attn", "ff": "mlp"}:
+                f"{cfg.name}: MoE layers outside the hybrid family (the MoE "
+                "family's configs, shared experts, expert paging) are "
+                "ported in a later slice (ROADMAP queue 1 item 11)")
+        if kind["mix"] not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind['mix']} layers are ported in a later "
                 "slice (ROADMAP queue 1 item 12)")
@@ -114,8 +124,9 @@ class Attention(nn.Module):
                 with torch.no_grad():
                     b.zero_()
 
-    def qkv(self, y: torch.Tensor, angles: torch.Tensor):
-        """y [B,S,d] -> roped q [B,S,Hq,dh], k/v [B,S,Hkv,dh]."""
+    def qkv(self, y: torch.Tensor, angles: torch.Tensor | None):
+        """y [B,S,d] -> q [B,S,Hq,dh], k/v [B,S,Hkv,dh]; q and k roped
+        unless ``angles`` is ``None`` (``rope_type="none"``)."""
         B, S, _ = y.shape
         q, k, v = y @ self.wq, y @ self.wk, y @ self.wv
         if self.bq is not None:
@@ -123,6 +134,8 @@ class Attention(nn.Module):
         q = q.reshape(B, S, self.n_heads, self.head_dim)
         k = k.reshape(B, S, self.n_kv_heads, self.head_dim)
         v = v.reshape(B, S, self.n_kv_heads, self.head_dim)
+        if angles is None:
+            return q, k, v
         a = angles[None, :, None, :]                     # [1,S,1,half]
         return apply_rotary(q, a), apply_rotary(k, a), v
 
@@ -144,16 +157,68 @@ class MLP(nn.Module):
         return apply_mlp(self.wg, self.wu, self.wd, x)
 
 
-class Block(nn.Module):
-    """One layer: ``norm1 -> mix (attention) -> norm2 -> ff (MLP)``, each
-    a residual branch (the reference's parameter tree names)."""
+class Mamba(nn.Module):
+    """The Mamba mixer's leaves (:mod:`.mamba`), ``a_log`` / ``dt_bias`` /
+    ``d_skip`` in float32."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
+        self.d_state = cfg.mamba_d_state
+        shapes = mamba_shapes(cfg.d_model, cfg.mamba_expand,
+                              cfg.mamba_d_state, cfg.mamba_d_conv)
+        self.names = tuple(shapes)
+        for name, sh in shapes.items():
+            setattr(self, name, _param(
+                sh, torch.float32 if name in F32_LEAVES else dtype, device))
+
+    def p(self) -> dict:
+        return {n: getattr(self, n) for n in self.names}
+
+    def init_params(self, gen: torch.Generator) -> None:
+        mamba_init_(self.p(), gen)
+
+
+class MoE(nn.Module):
+    """Router ``wr [d, E]`` and experts ``wg`` / ``wu [E, d, F]``,
+    ``wd [E, F, d]`` (:mod:`.moe`)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, E, F = cfg.d_model, cfg.n_experts, cfg.ff_expert
+        self.top_k, self.capacity_factor = cfg.top_k, cfg.capacity_factor
+        self.act = cfg.act
+        self.wr = _param((d, E), dtype, device)
+        self.wg = _param((E, d, F), dtype, device)
+        self.wu = _param((E, d, F), dtype, device)
+        self.wd = _param((E, F, d), dtype, device)
+
+    def init_params(self, gen: torch.Generator) -> None:
+        dense_init_(self.wr, gen)
+        for w in (self.wg, self.wu, self.wd):        # fan-in: dim 1
+            dense_init_(w, gen, scale=w.shape[1] ** -0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Inference routing: dropless, as the reference's prefill and
+        decode."""
+        p = {"wr": self.wr, "wg": self.wg, "wu": self.wu, "wd": self.wd}
+        return apply_moe(p, x, self.top_k, self.capacity_factor, self.act,
+                         dropless=True)[0]
+
+
+class Block(nn.Module):
+    """One layer: ``norm1 -> mix (attention or Mamba) -> norm2 -> ff (MLP
+    or MoE)``, each a residual branch (the reference's parameter tree
+    names)."""
+
+    def __init__(self, cfg: ModelConfig, kind: dict, dtype, device):
+        super().__init__()
+        self.kind = kind
         self.norm1 = Norm(cfg, dtype, device)
-        self.mix = Attention(cfg, dtype, device)
+        self.mix = (Attention(cfg, dtype, device) if kind["mix"] == "attn"
+                    else Mamba(cfg, dtype, device))
         self.norm2 = Norm(cfg, dtype, device)
-        self.ff = MLP(cfg, dtype, device)
+        self.ff = (MLP(cfg, dtype, device) if kind["ff"] == "mlp"
+                   else MoE(cfg, dtype, device))
 
     def init_params(self, gen: torch.Generator) -> None:
         self.norm1.init_params()
@@ -163,7 +228,7 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense decoder-only LM of ``cfg``, parameters in ``cfg.dtype`` on
+    """The decoder-only LM of ``cfg``, parameters in ``cfg.dtype`` on
     ``device`` (``None``: CUDA), left uninitialised until
     :meth:`init_params` or a conversion fills them."""
 
@@ -175,8 +240,8 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         dt = _dtype(cfg.dtype)
         self.embed = _param((cfg.padded_vocab, cfg.d_model), dt, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dt, dev)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, dt, dev)
+                                    for kind in cfg.layer_kinds())
         self.final_norm = Norm(cfg, dt, dev)
         self.lm_head_w = (None if cfg.tie_embeddings else
                           _param((cfg.d_model, cfg.padded_vocab), dt, dev))
@@ -212,16 +277,24 @@ class Transformer(nn.Module):
         """The lm-head product in the model dtype, then f32."""
         return (self.final_norm(h) @ self.lm_head()).float()
 
-    def _angles(self, start: int, n: int) -> torch.Tensor:
+    def _angles(self, start: int, n: int) -> torch.Tensor | None:
+        if self.cfg.rope_type == "none":
+            return None
         pos = torch.arange(start, start + n, device=self.device)
         return rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
 
     def init_decode_state(self, batch_size: int, max_len: int) -> dict:
-        """Zeroed caches ``[B, max_len, Hkv, dh]`` per layer, ``pos`` 0."""
+        """Zeroed caches ``[B, max_len, Hkv, dh]`` per attention layer and
+        zeroed carries per Mamba layer, ``pos`` 0."""
         sh = (batch_size, max_len, self.cfg.n_kv_heads, self.cfg.head_dim)
-        blocks = [{"k": torch.zeros(sh, dtype=self.dtype, device=self.device),
-                   "v": torch.zeros(sh, dtype=self.dtype, device=self.device)}
-                  for _ in self.blocks]
+        zeros = lambda: torch.zeros(sh, dtype=self.dtype, device=self.device)
+        blocks = []
+        for blk in self.blocks:
+            if blk.kind["mix"] == "attn":
+                blocks.append({"k": zeros(), "v": zeros()})
+            else:
+                blocks.append(mamba_state_init(batch_size, blk.mix.p(),
+                                               blk.mix.d_state))
         return {"blocks": blocks, "pos": 0}
 
     @torch.no_grad()
@@ -233,11 +306,18 @@ class Transformer(nn.Module):
         B = x.shape[0]
         angles = self._angles(pos, 1)
         for blk, st in zip(self.blocks, state["blocks"]):
-            q, k, v = blk.mix.qkv(blk.norm1(x), angles)
-            st["k"][:, pos] = k[:, 0]
-            st["v"][:, pos] = v[:, 0]
-            o = decode_attention(q, st["k"], st["v"], pos + 1)
-            x = x + o.reshape(B, 1, -1) @ blk.mix.wo
+            y = blk.norm1(x)
+            if blk.kind["mix"] == "attn":
+                q, k, v = blk.mix.qkv(y, angles)
+                st["k"][:, pos] = k[:, 0]
+                st["v"][:, pos] = v[:, 0]
+                o = decode_attention(q, st["k"], st["v"], pos + 1)
+                x = x + o.reshape(B, 1, -1) @ blk.mix.wo
+            else:
+                o, new = mamba_decode_step(blk.mix.p(), y, st,
+                                           blk.mix.d_state)
+                st.update(new)
+                x = x + o
             x = x + blk.ff(blk.norm2(x))
         state["pos"] = pos + 1
         return self._logits(x[:, 0]), state
@@ -251,11 +331,18 @@ class Transformer(nn.Module):
         angles = self._angles(0, S)
         state = self.init_decode_state(B, max_len)
         for blk, st in zip(self.blocks, state["blocks"]):
-            q, k, v = blk.mix.qkv(blk.norm1(x), angles)
-            o = causal_attention(q, k, v)
-            x = x + o.reshape(B, S, -1) @ blk.mix.wo
+            y = blk.norm1(x)
+            if blk.kind["mix"] == "attn":
+                q, k, v = blk.mix.qkv(y, angles)
+                o = causal_attention(q, k, v)
+                x = x + o.reshape(B, S, -1) @ blk.mix.wo
+                st["k"][:, :S] = k
+                st["v"][:, :S] = v
+            else:
+                o, new = apply_mamba(blk.mix.p(), y, blk.mix.d_state,
+                                     return_state=True)
+                st.update(new)
+                x = x + o
             x = x + blk.ff(blk.norm2(x))
-            st["k"][:, :S] = k
-            st["v"][:, :S] = v
         state["pos"] = S
         return self._logits(x[:, -1]), state

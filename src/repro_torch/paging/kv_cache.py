@@ -1,13 +1,15 @@
-"""Paged KV cache: pool init, flat-pool decode attention, page allocator.
+"""Paged KV cache: pool init, static page table, append, flat-pool decode
+attention, page allocator.
 
-Counterpart of ``src/repro/paging/kv_cache.py``. ``append_kv`` and
-``linear_page_table`` are ported in a later slice. :class:`PageAllocator`
-is a copy of the reference's host-side free list.
+Counterpart of ``src/repro/paging/kv_cache.py``. :class:`PageAllocator` is
+a copy of the reference's host-side free list; :func:`linear_page_table`
+the static layout of the lock-step batch path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -23,6 +25,43 @@ def init_paged_kv(n_layers: int, n_pages: int, page_size: int,
     sh = (n_layers, n_pages, page_size, n_kv_heads, head_dim)
     return {"k": torch.zeros(sh, dtype=dtype, device=dev),
             "v": torch.zeros(sh, dtype=dtype, device=dev)}
+
+
+def linear_page_table(batch: int, n_pages_per_seq: int, stride: int = 1,
+                      device=None) -> torch.Tensor:
+    """Static allocation: seq b's logical page j -> ``b * npps + (j *
+    stride % npps)``, as ``int32 [batch, npps]``.
+
+    ``j -> j * stride % npps`` is a permutation of ``[0, npps)`` only when
+    ``gcd(stride, npps) == 1``; any other stride would map two logical
+    pages of a sequence to one physical page, so it is rejected.
+    """
+    if math.gcd(stride, n_pages_per_seq) != 1:
+        raise ValueError(
+            f"stride={stride} is not coprime with n_pages_per_seq="
+            f"{n_pages_per_seq}: j*stride % npps would collide physical "
+            "pages within a sequence")
+    dev = resolve_device(device)
+    base = torch.arange(batch, device=dev)[:, None] * n_pages_per_seq
+    j = torch.arange(n_pages_per_seq, device=dev)[None, :]
+    return (base + (j * stride) % n_pages_per_seq).to(torch.int32)
+
+
+def append_kv(pool: dict, layer: int, k_new: torch.Tensor,
+              v_new: torch.Tensor, page_table: torch.Tensor,
+              pos: int) -> dict:
+    """Write one token's K/V for every sequence at position ``pos``, IN
+    PLACE (the reference returns a new pool); returns ``pool``.
+
+    ``k_new`` / ``v_new`` are ``[B, Hkv, dh]`` (cast to the pool dtype);
+    pool leaves are ``[L, n_pages, page, Hkv, dh]``.
+    """
+    page_size = pool["k"].shape[2]
+    phys = page_table[:, pos // page_size].long()            # [B]
+    offset = pos % page_size
+    pool["k"][layer, phys, offset] = k_new.to(pool["k"].dtype)
+    pool["v"][layer, phys, offset] = v_new.to(pool["v"].dtype)
+    return pool
 
 
 def paged_decode_attention(q: torch.Tensor, pool: dict, layer: int,

@@ -6,8 +6,9 @@ Counterpart of ``repro.serving.executor``. Two implementations:
   decode state; chunked prefill feeds prompt tokens one by one through the
   same ``decode_step`` the decode path uses, and the chunk that consumes
   the last prompt token emits the first output token (greedy argmax). The
-  K/V it hands the engine to mirror into the paged pool are the roped K/V
-  of the first attention layer at the input token's position.
+  K/V it hands the engine to mirror into the paged pool are the K/V (roped
+  where the model uses RoPE) of the first attention layer at the input
+  token's position.
 * :class:`SyntheticExecutor` — no model: hashed K/V keyed by
   ``(seed, request, position)`` and counter tokens.
 
@@ -140,6 +141,11 @@ class ModelExecutor:
         self._prompts: dict[int, torch.Tensor] = {}
         self._last_tok: dict[int, torch.Tensor] = {}
         self.last_logits: dict[int, torch.Tensor] = {}
+        kinds = [k["mix"] for k in cfg.layer_kinds()]
+        if "attn" not in kinds:
+            raise ValueError(f"{cfg.name}: no attention layer, so no K/V to "
+                             "mirror into the paged pool")
+        self.kv_layer = kinds.index("attn")
         self.n_kv_heads = cfg.n_kv_heads
         self.n_q_heads = cfg.n_heads
         self.head_dim = cfg.head_dim
@@ -176,13 +182,12 @@ class ModelExecutor:
 
     def _feed(self, req: Request, token: torch.Tensor):
         """One ``decode_step`` on ``token [1]``: ``(logits [V], k, v)``,
-        k/v ``[Hkv, dh]`` the first attention layer's roped K/V written for
-        the input token at its position (views of the cache; every layer of
-        the dense model is an attention layer, so it is layer 0)."""
+        k/v ``[Hkv, dh]`` the first attention layer's K/V written for the
+        input token at its position (views of the cache)."""
         state = self._states[req.req_id]
         pos = state["pos"]
         logits, state = self.model.decode_step(token, state)
-        blk = state["blocks"][0]
+        blk = state["blocks"][self.kv_layer]
         return logits[0], blk["k"][0, pos], blk["v"][0, pos]
 
     def _emit(self, req: Request, logits: torch.Tensor) -> int:

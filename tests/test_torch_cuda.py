@@ -152,3 +152,134 @@ def test_cuda_full_width_decode_step_is_finite(cuda):
     assert logits.shape == (1, cfg.vocab_size)
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
     assert state["pos"] == 3
+
+
+def _bf16_ulp_ratio(got, want):
+    """Largest |got - want| over one bf16 ulp of the larger magnitude
+    (+1e-6): both versions compute in f32 and round once to bf16."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), e - 8)
+    return ((got - want).abs() / (ulp + 1e-6)).max().item()
+
+
+SCAN_SHAPES = [  # B, S, di, N: S off the 64-step tile, di off the 128 block
+    (2, 100, 200, 16),
+    (1, 1, 5, 8),
+    (3, 130, 128, 4),
+    (4, 1024, 8192, 16),                     # jamba's prefill widths
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_selective_scan_vs_plain(cuda, B, S, di, N, dtype):
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_launches
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(rnd(B, S, di) - 2).to(dtype)
+    b, c, x = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype), \
+        rnd(B, S, di).to(dtype)
+    a = -torch.exp(rnd(di, N)).to(dtype)
+    n0 = selective_scan_launches.n
+    y, h = selective_scan(dt, b, c, x, a, return_state=True)
+    y0, h0 = selective_scan(dt, b, c, x, a, return_state=True,
+                            use_kernel=False)
+    torch.cuda.synchronize()
+    assert selective_scan_launches.n == n0 + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert (h - h0).abs().max().item() <= 1e-5
+    if dtype == torch.float32:
+        assert (y - y0).abs().max().item() <= 1e-5
+    else:
+        assert _bf16_ulp_ratio(y, y0) <= 1.0
+
+
+FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
+    (2, 100, 100, 8, 2, 128, True, 0, 0),
+    (1, 37, 90, 4, 1, 64, True, 0, 53),      # Sq != Sk, decode-tail offset
+    (2, 70, 70, 4, 4, 64, True, 16, 0),      # sliding window
+    (1, 50, 130, 6, 2, 80, True, 24, 80),    # window + offset, odd dh
+    (2, 33, 47, 4, 2, 32, False, 0, 0),      # no mask, ragged tiles
+    (4, 1024, 1024, 32, 8, 128, True, 0, 0), # jamba's prefill widths
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset",
+                         FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
+                                       window, q_offset, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_launches
+    g = torch.Generator(device=cuda).manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = rnd(B, Sq, Hq, dh), rnd(B, Sk, Hkv, dh), rnd(B, Sk, Hkv, dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    n0 = flash_attention_launches.n
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention(q, k, v, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_launches.n == n0 + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+    else:
+        assert _bf16_ulp_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_build_failure_raises_and_never_falls_back(cuda, monkeypatch,
+                                                        tmp_path):
+    """A kernel whose source does not compile raises from the wrapper; the
+    plain version is not taken in its place."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_launches
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "selective_scan.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_fns", {})
+    t = torch.ones((1, 3, 4), device=cuda)
+    n0 = selective_scan_launches.n
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        selective_scan(t, torch.ones((1, 3, 8), device=cuda),
+                       torch.ones((1, 3, 8), device=cuda), t,
+                       -torch.ones((4, 8), device=cuda))
+    assert selective_scan_launches.n == n0
+
+
+@pytest.mark.cuda
+def test_cuda_one_jamba_block_prefill_matches_decode(cuda, monkeypatch):
+    """One Jamba block of jamba-v0.1 at a quarter of its width, f32 with
+    TF32 off: prefill of S + 3 tokens (flash + scan kernels) against
+    prefill of S then 3 decode steps (the plain decode recurrence and
+    decode attention), at the model tolerance 5e-3."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(configs.get_config("jamba_v01_52b"),
+                              n_layers=8, d_model=1024, d_ff=2048,
+                              vocab_size=4096, dtype="float32")
+    model = build_model(cfg, device=cuda, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 67), generator=g,
+                         device=cuda)
+    full, _ = model.prefill(toks, 70)
+    logits, st = model.prefill(toks[:, :64], 70)
+    for t in range(64, 67):
+        logits, st = model.decode_step(toks[:, t], st)
+    torch.cuda.synchronize()
+    assert torch.isfinite(full).all()
+    assert ((logits - full).abs() <= 5e-3 + 5e-3 * full.abs()).all()

@@ -65,7 +65,7 @@ def test_configs_match_the_reference():
     assert tcfg.ARCHS == jcfg.ARCHS and tcfg.ALIASES == jcfg.ALIASES
 
 
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "phi35_moe_42b"])
+@pytest.mark.parametrize("arch", ["xlstm_350m", "phi35_moe_42b"])
 def test_unported_configs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcfg.get_config(arch)
