@@ -162,8 +162,25 @@ def counts() -> dict[str, int]:
     return {k: c.n for k, c in COUNTERS.items()}
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+_C = torch._C  # the CUDA bindings exist only in a CUDA build: read at call
+
+
+def stream_ptr(index: int) -> int:
+    """The raw ``cudaStream_t`` of device ``index``'s current stream (the
+    capture stream inside a CUDA graph capture), read without building a
+    ``torch.cuda.Stream``."""
+    return _C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream. The
+    device is entered only when it is not the current one already, which
+    spares the common call a device switch in and out. Returns ``fn``'s
+    code for :func:`check`."""
+    if index == _C._cuda_getDevice():
+        return fn(*args, stream_ptr(index))
+    with torch.cuda.device(index):
+        return fn(*args, stream_ptr(index))
 
 
 VP, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

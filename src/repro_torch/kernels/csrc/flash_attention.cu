@@ -1,4 +1,4 @@
-// Flash-attention forward (GQA prefill) for Hopper.
+// Flash-attention forward (GQA prefill) for Hopper: two routes.
 //
 // Replaces the Pallas TPU kernel flash_attention_fwd (_flash_kernel) of
 // src/repro/kernels/flash_attention/kernel.py: q [B, Hq, Sq, dh] against
@@ -8,35 +8,58 @@
 // i + q_offset; float32 or bfloat16 in and out, every statistic in float32.
 //
 // The TPU kernel walks KV blocks on a sequential grid axis with (m, l, acc)
-// in VMEM scratch. Here one block of THREADS threads owns BQ query rows of
-// one (batch, query head) and loops over the KV tiles of BK keys its mask
-// can reach; the loop takes the place of the sequential grid axis, and the
+// in VMEM scratch. Here one block owns a tile of query rows of one (batch,
+// query head) and loops over the KV tiles of 64 keys its mask can reach;
+// the loop takes the place of the sequential grid axis, and the
 // online-softmax state stays in registers. Tiles wholly outside the mask
 // are skipped: the reference's update leaves (m, l, acc) unchanged on such
 // a tile, so skipping is exact.
 //
-// Per tile, as _flash_kernel: s = (q * sm_scale) . k, masked to -1e30;
+// Per tile, as _flash_kernel: s = sm_scale * (q . k), masked to -1e30;
 // m_new = max(m, rowmax s); m_safe = (m_new <= -1e30 / 2) ? 0 : m_new;
 // p = masked ? 0 : expf(s - m_safe); corr = (m <= -1e30 / 2) ? 0 :
 // expf(m - m_safe); l = l * corr + sum p; acc = acc * corr + p . v; and at
 // the end o = acc / max(l, 1e-30) (a fully masked row gives 0).
 //
-// Thread mapping: 4 threads per query row (BQ = 32 rows x 4 = 128 threads).
-// A thread computes the scores of its row for keys sub, sub + 4, ... of the
-// tile, the row's max and sum go through two xor shuffles among the four,
-// the probabilities pass through shared memory, and the thread accumulates
-// output columns sub, sub + 4, ... (C of them, C = DH_MAX / 4 registers).
-// Q and K tiles are stored with a row pitch of dh + 1 floats so that the
-// score loop reads distinct banks.
-//
-// Tensors are addressed through element strides (batch, head, sequence);
-// dh must be contiguous. So the model's [B, S, H, dh] layout is read in
-// place and the output written in the caller's layout.
-//
 // Bound: operations -- 4 * dh flops per unmasked (query, key) pair per
-// query head. This first kernel runs them on the CUDA cores in float32,
-// far from the tensor-core rate that bound assumes.
+// query head.
+//
+// Tensor-core route (flash_wgmma_kernel; bfloat16, dh <= 128, views a TMA
+// tensor map takes). One warpgroup (128 threads) owns 64 query rows. Q and
+// a 2-stage ring of K/V tiles arrive by TMA on mbarriers, each 64-row tile
+// as boxes of 64 columns (128-byte rows, one box for dh <= 64, two above)
+// in the 128-byte swizzle that wgmma reads: 4 TMA instructions a K/V tile,
+// each moving whole 128-byte lines. (Boxes of 8 columns, the unswizzled
+// core-matrix layout, take 32 instructions and 2,048 half-used sectors a
+// tile; on an H100 at the jamba prefill, loading alone then took 0.325 ms
+// of the kernel's 0.332 ms.) dh is padded in shared memory to DHP (64, 80
+// or 128) by the tensor map's zero fill of the columns past dh, and rows
+// past Sq / Sk are zero-filled the same way.
+// S = Q . K^T is a wgmma m64n64k16 chain over DHP / 16 steps with both
+// operands K-major in shared memory (bf16 products are exact in the f32
+// accumulator); the scale, the mask and the online softmax run on the
+// accumulator fragment in registers (each thread holds 2 rows x 16 keys;
+// a row's four threads reduce with two xor shuffles). O += P . V takes P
+// from registers and V from shared memory as an MN-major operand. P is
+// carried in three bf16 parts, P_hi + P_mid + P_lo (each the bf16 of what
+// the parts before it leave of p), three wgmmas into the same f32
+// accumulator: the parts hold p to 2^-27 of itself. A bf16 P alone misses
+// one bf16 ulp of the f32 result by two orders of magnitude, and two parts
+// (2^-18) still missed it by up to 1.6x on an H100, on outputs near zero
+// of rows with few keys, where the limit is about 1e-6 absolute. The strided
+// [B, S, H, dh] view of the model is read in place through the tensor
+// maps' strides; the output is stored from registers.
+//
+// CUDA-core route (flash_kernel; float32, and bfloat16 with dh in (128,
+// 256] or with a view no tensor map takes). Tensor cores in f32 mean TF32,
+// which misses the 2e-5 f32 limit. 4 threads per query row (32 rows x 4 =
+// 128 threads); a thread computes the scores of its row for keys sub,
+// sub + 4, ... of the tile, the row's max and sum go through two xor
+// shuffles among the four, the probabilities pass through shared memory,
+// and the thread accumulates output columns sub, sub + 4, ... (C of them).
+// Q and K tiles are stored as f32 with a row pitch of dh + 1.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -217,6 +240,499 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// Tensor-core route
+namespace {
+namespace tc {
+
+constexpr int THREADS = 128;      // one warpgroup
+constexpr int BM = 64;            // query rows per block
+constexpr int BN = 64;            // keys per tile
+constexpr int STAGES = 2;         // K/V ring depth
+constexpr int BOX_BYTES = 64 * 128;  // one 64-column box of a 64-row tile
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of the tensor map at coordinates (c0..c3) into shared memory,
+// completing on ``bar``
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A tensor map's outer coordinates are (row, head, batch) in the order of
+// their strides; ``perm`` holds the slot (1..3) of each, 2 bits apiece.
+__device__ __forceinline__ void tma_box(const CUtensorMap* map, int perm,
+                                        uint32_t dst, uint32_t bar, int col,
+                                        int row, int head, int batch) {
+  const int ps = perm & 3, ph = (perm >> 2) & 3;
+  const int c1 = ps == 1 ? row : (ph == 1 ? head : batch);
+  const int c2 = ps == 2 ? row : (ph == 2 ? head : batch);
+  const int c3 = ps == 3 ? row : (ph == 3 ? head : batch);
+  tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+// the K and V tiles of 64 rows from ``row``, NB boxes each, into
+// shared memory at k_dst / v_dst, completing on ``bar`` (one thread)
+template <int NB>
+__device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, int kperm,
+                                        int vperm, uint32_t k_dst,
+                                        uint32_t v_dst, uint32_t bar, int row,
+                                        int head, int batch) {
+  mbar_expect_tx(bar, 2 * NB * BOX_BYTES);
+#pragma unroll 1
+  for (int g = 0; g < NB; ++g) {
+    tma_box(kmap, kperm, k_dst + g * BOX_BYTES, bar, g * 64, row, head,
+            batch);
+    tma_box(vmap, vperm, v_dst + g * BOX_BYTES, bar, g * 64, row, head,
+            batch);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving register reads and writes across the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[64 x 64] (+)= a[64 x 16] . b[16 x 64], both K-major in shared memory;
+// ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<64> {
+  // d[64 x 64] (+)= a[64 x 16] (registers) . b[16 x 64] (MN-major);
+  // ``accumulate`` 0 overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRS<80> {
+  // d[64 x 80] (+)= a[64 x 16] (registers) . b[16 x 80] (MN-major);
+  // ``accumulate`` 0 overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[40], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  // d[64 x 128] (+)= a[64 x 16] (registers) . b[16 x 128] (MN-major);
+  // ``accumulate`` 0 overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+  }
+};
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared memory (NB boxes a tile, box g of a tile at g * BOX_BYTES, row r
+// of a box at r * 128 with its 16-byte chunks swizzled by r % 8): Q, then
+// STAGES K tiles, then STAGES V tiles, then the mbarriers (Q's, then one
+// per stage).
+template <int DHP>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, int qperm,
+                   int kperm, int vperm, __nv_bfloat16* __restrict__ o,
+                   long long osb, long long osh, long long oss, int G,
+                   int Sq, int Sk, int dh, int causal, int window,
+                   int q_offset, float sm_scale) {
+  constexpr int NB = (DHP + 63) / 64;         // boxes a tile
+  constexpr int TILE = NB * BOX_BYTES;        // one 64-row tile
+  constexpr int NO = DHP / 2;                 // O fragment, floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + TILE, sV = sK + STAGES * TILE;
+  const uint32_t q_bar = sV + STAGES * TILE;  // then full[s] = q_bar + 8 (1 + s)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+
+  // the key tiles this block's mask can reach
+  const int q_last = min(q0 + BM, Sq) - 1;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q_last + q_offset + 1);
+  if (window) k_begin = max(0, q0 + q_offset - window + 1);
+  const int t_begin = k_begin / BN;
+  const int n_t =
+      k_end > k_begin ? (k_end + BN - 1) / BN - t_begin : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s <= STAGES; ++s) mbar_init(q_bar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_t > 0) {
+    mbar_expect_tx(q_bar, TILE);
+#pragma unroll 1
+    for (int g = 0; g < NB; ++g)
+      tma_box(&qmap, qperm, sQ + g * BOX_BYTES, q_bar, g * 64, q0, h, b);
+    for (int s = 0; s < STAGES && s < n_t; ++s)
+      load_kv<NB>(&kmap, &vmap, kperm, vperm, sK + s * TILE,
+                  sV + s * TILE, q_bar + 8 * (1 + s),
+                  (t_begin + s) * BN, hk, b);
+  }
+
+  // this thread's rows of the tile: r0 and r0 + 8
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qp0 = q0 + r0 + q_offset, qp1 = qp0 + 8;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+
+  if (n_t > 0) mbar_wait(q_bar, 0);
+#pragma unroll 1
+  for (int i = 0; i < n_t; ++i) {
+    const int t = t_begin + i, stage = i % STAGES;
+    mbar_wait(q_bar + 8 * (1 + stage), (i / STAGES) & 1);
+    const uint32_t kt = sK + stage * TILE, vt = sV + stage * TILE;
+
+    // S = Q . K^T, K-major operands: a k-step of 16 columns starts 32 bytes
+    // into a 128-byte row (a box further every 4 steps); 8-row groups 1 KB
+    // apart
+    float s[32] = {};
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk)
+      wgmma_ss_n64(s,
+                   desc(sQ + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
+                   desc(kt + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s[j]: row r0 + 8 * ((j >> 1) & 1), key k0 + 8 * (j >> 2) +
+    // 2 * (lane & 3) + (j & 1)
+    const int k0 = t * BN;
+    const bool whole = k0 + BN <= Sk &&
+                       (!causal || k0 + BN - 1 <= q0 + q_offset) &&
+                       (!window || k0 > q_last + q_offset - window);
+    float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float x = s[j] * sm_scale;
+      if (!whole) {
+        const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int qp = (j & 2) ? qp1 : qp0;
+        const bool in = kp < Sk && (!causal || kp <= qp) &&
+                        (!window || kp > qp - window);
+        x = in ? x : NEG_INF;
+      }
+      s[j] = x;
+      mt[(j >> 1) & 1] = fmaxf(mt[(j >> 1) & 1], x);
+    }
+    float m_safe[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      m_safe[r] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+      corr[r] = m[r] <= NEG_INF / 2 ? 0.f : expf(m[r] - m_safe[r]);
+      m[r] = m_new;
+    }
+    // p: a masked score is -1e30, whose expf is exactly 0
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int r = (j >> 1) & 1;
+      s[j] = expf(s[j] - m_safe[r]);
+      psum[r] += s[j];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l[r] = l[r] * corr[r] + psum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[j] *= corr[(j >> 1) & 1];
+
+    // P = P_hi + P_mid + P_lo, each bf16 (P_hi = bf16(p), P_mid =
+    // bf16(p - P_hi), P_lo = bf16(p - P_hi - P_mid); both differences are
+    // exact in f32), as A fragments: keys 16 kc .. 16 kc + 15 are
+    // s[8 kc .. 8 kc + 7], i.e. registers 4 kc .. 4 kc + 3
+    uint32_t ph[16], pm[16], pl[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float x[2] = {s[2 * j], s[2 * j + 1]}, hi[2], mid[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        hi[e] = __bfloat162float(__float2bfloat16(x[e]));
+        x[e] -= hi[e];
+        mid[e] = __bfloat162float(__float2bfloat16(x[e]));
+        x[e] -= mid[e];
+      }
+      ph[j] = pack_bf16(hi[0], hi[1]);
+      pm[j] = pack_bf16(mid[0], mid[1]);
+      pl[j] = pack_bf16(x[0], x[1]);
+    }
+    fence_regs(ph);
+    fence_regs(pm);
+    fence_regs(pl);
+    fence_regs(acc);
+    wgmma_fence();
+    // O += P . V, V the MN-major B operand: a k-step of 16 keys starts 16
+    // rows (2 KB) further, 8-key groups 1 KB apart, 64-column blocks a box
+    // apart; the smallest part first
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      const uint64_t dv = desc(vt + kc * 16 * 128, BOX_BYTES, 1024);
+      WgmmaRS<DHP>::mma(acc, pl[4 * kc], pl[4 * kc + 1], pl[4 * kc + 2],
+                        pl[4 * kc + 3], dv, 1);
+      WgmmaRS<DHP>::mma(acc, pm[4 * kc], pm[4 * kc + 1], pm[4 * kc + 2],
+                        pm[4 * kc + 3], dv, 1);
+      WgmmaRS<DHP>::mma(acc, ph[4 * kc], ph[4 * kc + 1], ph[4 * kc + 2],
+                        ph[4 * kc + 3], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pm);
+    fence_regs(pl);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && i + STAGES < n_t)
+      load_kv<NB>(&kmap, &vmap, kperm, vperm, kt, vt,
+                  q_bar + 8 * (1 + stage), (t + STAGES) * BN, hk, b);
+  }
+
+  // acc[j]: row r0 + 8 * ((j >> 1) & 1), column 8 * (j >> 2) +
+  // 2 * (lane & 3) + (j & 1)
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int r = (j >> 1) & 1;
+    const int qr = q0 + r0 + 8 * r;
+    const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+    if (qr < Sq && col < dh)
+      ob[(long long)qr * oss + col] = __float2bfloat16(acc[j] * inv[r]);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, through the runtime (no
+// -lcuda)
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 [B, H, S, dh] view (element strides sb, sh, ss; dh contiguous) as
+// a 4-D tensor map whose box is 64 columns x 64 rows, 128-byte swizzled. The outer dims go in
+// the order of their strides, size-1 dims last with a stride that only has
+// to be valid; ``perm`` gets each one's slot (see tma_box). Reads past dh,
+// S, H or B are zero-filled.
+bool encode_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                 int dh, long long sb, long long sh, long long ss,
+                 int* perm) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  long long n[3] = {S, H, B}, st[3] = {ss, sh, sb};
+  int order[3] = {0, 1, 2};
+  auto key = [&](int i) { return n[i] == 1 ? (1LL << 62) : st[i]; };
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && key(order[j]) < key(order[j - 1]); --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1}, estr[4] = {1, 1, 1, 1};
+  long long span = (dh + 7) / 8 * 8;  // elements one step of the last dim spans
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int which = order[i];
+    const long long stride = n[which] == 1 ? span : st[which];
+    dims[i + 1] = (cuuint64_t)n[which];
+    strides[i] = (cuuint64_t)stride * 2;
+    span = (stride * n[which] + 7) / 8 * 8;
+    if (which == 0) box[i + 1] = BM;
+    *perm |= (i + 1) << (2 * which);
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DHP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           int qp, int kp, int vp, void* o, int B, int Hq, int Hkv, int Sq,
+           int Sk, int dh, int causal, long long osb, long long osh,
+           long long oss, int window, int q_offset, float sm_scale,
+           cudaStream_t st) {
+  const size_t smem = 1024 +
+                      (size_t)(1 + 2 * STAGES) * ((DHP + 63) / 64) * BOX_BYTES +
+                      8 * (STAGES + 1);
+  auto kern = flash_wgmma_kernel<DHP>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((Sq + BM - 1) / BM, Hq, B);
+  kern<<<grid, THREADS, smem, st>>>(qm, km, vm, qp, kp, vp,
+                                    (__nv_bfloat16*)o, osb, osh, oss,
+                                    Hq / Hkv, Sq, Sk, dh, causal, window,
+                                    q_offset, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+}  // namespace
+
 // Strides are in elements, (batch, head, sequence) for each of q, k, v, o.
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
 // head dim outside (0, 256] or query heads that KV heads do not divide.
@@ -239,4 +755,35 @@ extern "C" int flash_attention_launch(
                                    st);
   return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, qs, ks,
                          vs, os, window, q_offset, sm_scale, st);
+}
+
+// The tensor-core route: bf16, 0 < dh <= 128, every base 16-byte aligned
+// and every stride of a dim longer than 1 a multiple of 8 elements (the
+// wrapper checks; a tensor map cuTensorMapEncodeTiled refuses returns
+// cudaErrorInvalidValue). Arguments as flash_attention_launch's.
+extern "C" int flash_attention_wgmma_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    int Hkv, int Sq, int Sk, int dh, int causal, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, int window, int q_offset,
+    float sm_scale, void* stream) {
+  if (dh <= 0 || dh > 128 || Hkv <= 0 || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaSuccess;
+  CUtensorMap qm, km, vm;
+  int qp, kp, vp;
+  if (!tc::encode_bhsd(&qm, q, B, Hq, Sq, dh, q_sb, q_sh, q_ss, &qp) ||
+      !tc::encode_bhsd(&km, k, B, Hkv, Sk, dh, k_sb, k_sh, k_ss, &kp) ||
+      !tc::encode_bhsd(&vm, v, B, Hkv, Sk, dh, v_sb, v_sh, v_ss, &vp))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FLASH_TC(D)                                                         \
+  return tc::launch<D>(qm, km, vm, qp, kp, vp, o, B, Hq, Hkv, Sq, Sk, dh,   \
+                       causal, o_sb, o_sh, o_ss, window, q_offset, sm_scale, \
+                       st)
+  if (dh <= 64) FLASH_TC(64);
+  if (dh <= 80) FLASH_TC(80);
+  FLASH_TC(128);
+#undef FLASH_TC
 }

@@ -6,20 +6,31 @@ Replaces the Pallas TPU kernel ``flash_attention_fwd``
 ``q [B,Hq,Sq,dh]`` against ``k/v [B,Hkv,Sk,dh]``, the K/V of query head
 ``h`` read from KV head ``h // G`` (no broadcast copy), causal and
 sliding-window masks placed by ``q_offset``, online-softmax statistics in
-float32, float32 or bfloat16 in and out.
+float32, float32 or bfloat16 in and out. Tensors are passed with their
+strides (``dh`` contiguous), so the model's ``[B, S, H, dh]`` layout is
+read in place; K/V tiles that the mask cannot reach are skipped, which
+leaves the online-softmax state exactly as the reference's masked update
+would.
 
-One block per (batch, query head, tile of 32 query rows) walks the K/V
-tiles of 64 keys that its mask can reach, staged in shared memory as
-float32; tiles wholly outside the mask are skipped, which leaves the
-online-softmax state exactly as the reference's masked update would.
-Tensors are passed with their strides (``dh`` contiguous), so the model's
-``[B, S, H, dh]`` layout is read in place.
+Two routes, chosen explicitly by :func:`tensor_core_route`:
+
+* **tensor cores** (bfloat16, ``dh <= 128``, views a TMA tensor map takes:
+  16-byte aligned bases, strides of whole 16-byte units) — one warpgroup
+  per 64 query rows, Q and a 2-stage K/V ring by TMA on mbarriers in
+  128-byte-swizzled boxes of 64 columns, ``wgmma`` for S = Q K^T and for
+  O += P V with ``P`` carried in three bf16 parts (``P_hi + P_mid +
+  P_lo``, three products into one f32 accumulator), which keeps the result
+  within one bf16 ulp of the f32 plain version. Counted by
+  ``flash_attention_wgmma_launches`` as well.
+* **CUDA cores** (float32 — TF32 would miss the 2e-5 f32 limit — and the
+  bf16 inputs the first route does not take, such as ``dh`` in (128, 256])
+  — 32 query rows a block on float32 tiles in shared memory.
+
+``flash_attention_launches`` counts every launch of either route.
 
 Bound on the H100: operations — ``4 * dh`` flops per unmasked (query,
 key) pair per query head, about 0.035 ms at the bf16 tensor-core peak for
-jamba's 4 x 1024-token prefill. This first kernel computes on the CUDA
-cores in float32 and sits far above that bound; tensor cores (``wgmma``)
-are later work.
+jamba's 4 x 1024-token prefill.
 """
 
 from __future__ import annotations
@@ -29,12 +40,16 @@ import torch
 from .. import _build
 
 flash_attention_launches = _build.counter("flash_attention")
+flash_attention_wgmma_launches = _build.counter("flash_attention_wgmma")
 
 _ARGS = ([_build.VP] * 4 + [_build.I32] * 7 + [_build.I64] * 12
          + [_build.I32] * 2 + [_build.F32, _build.I32, _build.VP])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TC_ARGS = _ARGS[:-2] + [_build.VP]
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 256
+#: largest head dim of the tensor-core route
+MAX_TC_HEAD_DIM = 128
 
 
 def _check(q, k, v) -> None:
@@ -65,6 +80,21 @@ def _check(q, k, v) -> None:
                          "contiguous")
 
 
+def _tma_view(t: torch.Tensor) -> bool:
+    """A tensor map takes ``t [B,H,S,dh]``: 16-byte aligned base, and every
+    stride of a dim longer than 1 a whole number of 16-byte units."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def tensor_core_route(q, k, v) -> bool:
+    """Whether the tensor-core kernel takes these inputs: bfloat16, head
+    dim at most :data:`MAX_TC_HEAD_DIM`, and views a TMA tensor map takes.
+    Every other input goes to the CUDA-core kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] <= MAX_TC_HEAD_DIM
+            and _tma_view(q) and _tma_view(k) and _tma_view(v))
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, sm_scale: float | None = None
                         ) -> torch.Tensor:
@@ -75,14 +105,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     B, Hq, Sq, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)           # q's strides, dh contiguous as in q
-    fn = _build.bind("flash_attention", "flash_attention_launch", _ARGS)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  B, Hq, Hkv, Sq, Sk, dh, int(bool(causal)), *strides,
-                  int(window), int(q_offset),
-                  float(sm_scale or 1.0 / dh ** 0.5), _DTYPES[q.dtype],
-                  _build.stream_ptr())
-    _build.check(code, "flash_attention")
-    flash_attention_launches.n += 1
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+            Hkv, Sq, Sk, dh, int(bool(causal)), *strides, int(window),
+            int(q_offset), float(sm_scale or 1.0 / dh ** 0.5)]
+    if tensor_core_route(q, k, v):
+        name = "flash_attention_wgmma_launch"
+        fn = _build.bind("flash_attention", name, _TC_ARGS)
+        code = _build.launch(fn, q.get_device(), *args)
+        counted = (flash_attention_launches, flash_attention_wgmma_launches)
+    else:
+        name = "flash_attention_launch"
+        fn = _build.bind("flash_attention", name, _ARGS)
+        code = _build.launch(fn, q.get_device(), *args, _DTYPES[q.dtype])
+        counted = (flash_attention_launches,)
+    _build.check(code, name)
+    for c in counted:
+        c.n += 1
     return o

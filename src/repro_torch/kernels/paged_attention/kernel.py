@@ -65,12 +65,11 @@ def _launch(entry, counter, name, q, k, v, table, lengths, n_valid,
     B, Hkv, G, dh = q.shape
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", entry, _ARGS)
-    with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  B, Hkv, G, dh, page_size, table.shape[1], n_valid,
-                  float(sm_scale or 1.0 / dh ** 0.5), _DTYPES[q.dtype],
-                  _build.stream_ptr())
+    code = _build.launch(fn, q.get_device(), q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+                         out.data_ptr(), B, Hkv, G, dh, page_size,
+                         table.shape[1], n_valid,
+                         float(sm_scale or 1.0 / dh ** 0.5), _DTYPES[q.dtype])
     _build.check(code, name)
     counter.n += 1
     return out

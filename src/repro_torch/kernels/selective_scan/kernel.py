@@ -63,10 +63,9 @@ def selective_scan_fwd(dt, b, c, x, a) -> tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty_like(dt)
     h = torch.empty((B, di, N), dtype=torch.float32, device=dt.device)
     fn = _build.bind("selective_scan", "selective_scan_launch", _ARGS)
-    with torch.cuda.device(dt.device):
-        code = fn(dt.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(),
-                  a.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, di, N,
-                  _build.stream_ptr())
+    code = _build.launch(fn, dt.get_device(), dt.data_ptr(), b.data_ptr(),
+                         c.data_ptr(), x.data_ptr(), a.data_ptr(),
+                         y.data_ptr(), h.data_ptr(), B, S, di, N)
     _build.check(code, "selective_scan")
     selective_scan_launches.n += 1
     return y, h

@@ -77,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos", default=None, metavar="SPEC.json",
                     help="batch: chaos sidecar; not ported yet")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4,
-                    help="concurrent serving slots (tiered streams)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="continuous engine: concurrent serving slots "
+                         "(default: --batch)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--page-size", type=int, default=4)
@@ -89,6 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ring-size", type=int, default=8,
                     help="in-flight ring capacity for --async-datapath")
     ap.add_argument("--length-jitter", type=float, default=0.0)
+    ap.add_argument("--think-time", type=float, default=1000.0,
+                    help="continuous engine: arrival-process mean gap (µs)")
+    ap.add_argument("--gang", action="store_true",
+                    help="continuous engine: lock-step gang admission "
+                         "(the fixed-batch baseline) instead of continuous")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="continuous engine: cold-pool pages (default "
+                         "slots * pages-per-request; smaller values make "
+                         "admission wait on memory)")
     ap.add_argument("--link-budget", type=int, default=None,
                     help="pages/step the shared link moves across all "
                          "streams' prefetches (demand first)")
@@ -220,14 +230,16 @@ def _main_batch(args, model=None, prompts=None) -> dict:
 def _main_continuous(args) -> dict:
     """The continuous-batching engine over the request lifecycle."""
     scfg = ServeConfig(
-        requests=args.requests, slots=args.slots,
+        requests=args.requests,
+        slots=args.slots if args.slots is not None else args.batch,
         prompt_len=args.prompt_len, gen=args.gen,
         length_jitter=args.length_jitter, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, chunk=args.chunk,
         ring_size=args.ring_size, async_datapath=args.async_datapath,
         link_budget=args.link_budget,
         attn_kernel=normalize_attn_kernel(args.attn_kernel),
-        arrival=args.arrival, seed=args.seed, trace=bool(args.trace))
+        arrival=args.arrival, think_time=args.think_time, seed=args.seed,
+        gang=args.gang, pool_pages=args.pool_pages, trace=bool(args.trace))
     executor = (build_executor(None, seed=args.seed, device=args.device)
                 if args.synthetic else
                 ModelExecutor(model_config(args), seed=args.seed,

@@ -45,17 +45,21 @@ def _has_valid_token(table, n_valid, lengths, page_size):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
-@pytest.mark.parametrize("row", [(16, 2, 128), (3, 7), (5000,)])
+@pytest.mark.parametrize("row", [(16, 2, 128), (3, 7), (5000,), (8192,)])
 def test_cuda_gather_kernels_bytes_exact(cuda, dtype, row):
+    """Rows of 8 KB (bf16 (16, 2, 128), uint8 (8192,)), of several 8 KB
+    tiles, unaligned ones; K = 1, 33, and 600, more tiles than one block
+    of the async kernel takes."""
     g = torch.Generator(device=cuda).manual_seed(0)
     pool = (torch.randn((40,) + row, generator=g, device=cuda) * 50).to(dtype)
-    idx = torch.randint(-3, 45, (33,), generator=g, device=cuda,
-                        dtype=torch.int32)
-    want = kg.gather_pages(pool, idx, use_kernel=False)
-    for fn in (kg.gather_pages, kg.gather_pages_async):
-        got = fn(pool, idx)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    for K in (33, 1, 600):
+        idx = torch.randint(-3, 45, (K,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        want = kg.gather_pages(pool, idx, use_kernel=False)
+        for fn in (kg.gather_pages, kg.gather_pages_async):
+            got = fn(pool, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (K, fn.__name__)
 
 
 @pytest.mark.cuda
@@ -205,6 +209,8 @@ FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (1, 50, 130, 6, 2, 80, True, 24, 80),    # window + offset, odd dh
     (2, 33, 47, 4, 2, 32, False, 0, 0),      # no mask, ragged tiles
     (4, 1024, 1024, 32, 8, 128, True, 0, 0), # jamba's prefill widths
+    (2, 150, 150, 8, 2, 120, True, 0, 0),    # dh 120, off the 64-row tile
+    (1, 70, 200, 4, 2, 96, True, 32, 130),   # dh 96, window + offset
 ]
 
 
@@ -227,6 +233,32 @@ def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
     torch.cuda.synchronize()
     assert flash_attention_launches.n == n0 + 1
     assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+    else:
+        assert _bf16_ulp_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,tensor_cores", [
+    (torch.bfloat16, 128, True), (torch.bfloat16, 80, True),
+    (torch.float32, 128, False), (torch.bfloat16, 160, False)])
+def test_cuda_flash_attention_route_counters(cuda, dtype, dh, tensor_cores):
+    """bf16 at dh <= 128 takes the tensor-core route and raises its
+    counter; f32, and bf16 at dh > 128, take the CUDA-core route and do
+    not. Every launch raises the flash counter once."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_launches, flash_attention_wgmma_launches)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = rnd(2, 90, 8, dh), rnd(2, 90, 2, dh), rnd(2, 90, 2, dh)
+    n0, t0 = flash_attention_launches.n, flash_attention_wgmma_launches.n
+    got = flash_attention(q, k, v)
+    want = flash_attention(q, k, v, use_kernel=False)
+    torch.cuda.synchronize()
+    assert flash_attention_launches.n == n0 + 1
+    assert flash_attention_wgmma_launches.n == t0 + int(tensor_cores)
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
     else:

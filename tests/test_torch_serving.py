@@ -268,3 +268,51 @@ def test_chrome_trace_matches_the_reference_writer(tmp_path):
     want["traceEvents"] = [e for e in want["traceEvents"]
                            if e.get("pid") != 1]
     assert json.loads(out.read_text()) == json.loads(json.dumps(want))
+
+
+CLI_ARGS = ["--synthetic", "--paged", "--arrival", "bursty", "--batch", "3",
+            "--requests", "5", "--prompt-len", "32", "--gen", "4",
+            "--page-size", "4", "--prefill-chunk", "8"]
+#: every integer outcome of a continuous-engine run (and the admission mode)
+CLI_KEYS = ("slots", "admission", "requests", "steps", "requests_finished",
+            "tokens_decoded", "ttft_steps", "mean_ttft_steps",
+            "pages_allocated", "pages_recycled", "alloc_in_use_end",
+            "alloc_occupancy_peak", "prefetch_hits_total", "deferred_total",
+            "tiered_equiv_ok")
+
+
+@pytest.mark.parametrize("extra", [["--gang"],
+                                   ["--pool-pages", "24",
+                                    "--think-time", "2500"]])
+def test_cli_engine_flags_match_the_reference_cli(extra):
+    """``--gang``, ``--pool-pages`` and ``--think-time`` reach the engine
+    as in the reference CLI, and ``--slots`` unset follows ``--batch``:
+    with the same arguments the two CLIs give the same integers. (24 pool
+    pages sit under the 27 that three slots of nine pages would get, so
+    admission waits on memory. The think time of 2500 changes the
+    reference's integers against its default of 1000, so a port that
+    dropped the flag would fail.)"""
+    from repro.launch.serve import main as jmain
+    from repro_torch.launch.serve import main as tmain
+    want = jmain(CLI_ARGS + extra)
+    if "--think-time" in extra:
+        i = extra.index("--think-time")
+        default = jmain(CLI_ARGS + extra[:i] + extra[i + 2:])
+        assert ({k: default[k] for k in CLI_KEYS}
+                != {k: want[k] for k in CLI_KEYS})
+    got = tmain(CLI_ARGS + extra + ["--device", "cpu"])
+    assert {k: got[k] for k in CLI_KEYS} == {k: want[k] for k in CLI_KEYS}
+    assert got["slots"] == 3
+    assert got["admission"] == ("gang" if "--gang" in extra
+                                else "continuous")
+
+
+@pytest.mark.parametrize("slots,want", [([], 5), (["--slots", "2"], 2)])
+def test_cli_slots_default_to_batch(slots, want):
+    from repro_torch.launch.serve import build_parser
+    from repro_torch.launch.serve import main as tmain
+    args = ["--synthetic", "--paged", "--arrival", "bursty", "--batch", "5",
+            "--requests", "3", "--prompt-len", "8", "--gen", "3",
+            "--prefill-chunk", "4", "--device", "cpu", *slots]
+    assert build_parser().parse_args(args).slots == (want if slots else None)
+    assert tmain(args)["slots"] == want
