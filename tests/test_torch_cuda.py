@@ -19,10 +19,21 @@ SHAPES = [  # B/S, Hq, Hkv, dh, page, npps: GQA, MHA, MQA, serving path
     (1, 4, 4, 32, 8, 8),
     (3, 4, 1, 128, 32, 2),
     (8, 16, 2, 128, 16, 129),
+    # through kernel.split_pages (P pages a split, n splits):
+    (8, 16, 2, 128, 16, 2048),   # qwen2.5-3b at its 32K context: P 121, 17
+    (4, 32, 8, 128, 16, 65),     # jamba's GQA group, G = 4: P 8, 9
+    (64, 64, 8, 128, 16, 16),    # B * Hkv fills the card: one split
+    (2, 8, 2, 64, 16, 37),       # npps off a multiple of P: P 2, 19
+    (2, 32, 2, 64, 16, 9),       # G = 16, two blocks of heads: P 2, 5
 ]
 # head dims whose bf16 rows are 8, 12 and 6 bytes: the async kernel's
 # 8-byte, 4-byte and element-wise copy paths
 ODD_ROWS = [(2, 4, 2, 4, 8, 3), (3, 4, 2, 6, 8, 3), (2, 2, 1, 3, 4, 5)]
+# rows over 512 bytes, where a lane holds two or four chunks of a row: f32 at
+# stablelm-12b's dh 160 (640 bytes), f32 dh 256 / bf16 dh 512 (1,024
+# bytes), f32 dh 512 (2,048 bytes, the widest taken)
+WIDE_ROWS = [(2, 32, 8, 160, 16, 9), (2, 8, 2, 256, 8, 5),
+             (2, 4, 2, 512, 4, 3)]
 
 
 @pytest.fixture
@@ -63,7 +74,7 @@ def test_cuda_gather_kernels_bytes_exact(cuda, dtype, row):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,dh,ps,npps", SHAPES)
+@pytest.mark.parametrize("B,Hq,Hkv,dh,ps,npps", SHAPES + WIDE_ROWS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_attention_kernels_vs_plain(cuda, B, Hq, Hkv, dh, ps, npps,
@@ -83,6 +94,8 @@ def test_cuda_attention_kernels_vs_plain(cuda, B, Hq, Hkv, dh, ps, npps,
     torch.cuda.synchronize()
     live = _has_valid_token(pt, n_pages, ln, ps)
     assert (got[live].float() - want[live].float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        assert _bf16_ulp_ratio(got[live], want[live]) <= 1.0
     n_slots = npps + 2
     kh, vh = rnd(B, n_slots, ps, Hkv, dh), rnd(B, n_slots, ps, Hkv, dh)
     st = torch.randint(-1, n_slots + 1, (B, npps), generator=g, device=cuda,
@@ -97,11 +110,13 @@ def test_cuda_attention_kernels_vs_plain(cuda, B, Hq, Hkv, dh, ps, npps,
     torch.cuda.synchronize()
     live = _has_valid_token(st, n_slots, ln, ps)
     assert (hot[live].float() - want[live].float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        assert _bf16_ulp_ratio(hot[live], want[live]) <= 1.0
     assert torch.equal(hot, flat)                 # fused == flat, bitwise
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,Hq,Hkv,dh,ps,npps", SHAPES + ODD_ROWS)
+@pytest.mark.parametrize("S,Hq,Hkv,dh,ps,npps", SHAPES + ODD_ROWS + WIDE_ROWS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_async_hot_slots_vs_plain_and_bitwise(cuda, S, Hq, Hkv, dh, ps,
@@ -135,8 +150,152 @@ def test_cuda_async_hot_slots_vs_plain_and_bitwise(cuda, S, Hq, Hkv, dh, ps,
     if live.any():
         err = (got[live].float() - want[live].float()).abs().max().item()
         assert err <= tol
+        if dtype == torch.bfloat16:
+            assert _bf16_ulp_ratio(got[live], want[live]) <= 1.0
     assert torch.equal(got, sync) and torch.equal(got, flat)
     assert not got[~live].any()                   # masked rows are 0
+
+
+#: the split's edges at the model serve's shape (P 2, 33 splits) and the
+#: synthetic serve's (P 8, 17 splits)
+SPLIT_EDGES = [(4, 16, 2, 128, 16, 65), (8, 16, 2, 128, 16, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Hq,Hkv,dh,ps,npps", SPLIT_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_split_edges(cuda, S, Hq, Hkv, dh, ps, npps, dtype):
+    """Row 0's table masks every page of its split 1; row 1's length ends
+    inside its split 0, so its later splits are all past it; row 2's ends
+    inside its last page. The three kernels against the plain version, and
+    async == sync == flat bitwise."""
+    from repro_torch.kernels.paged_attention.kernel import split_pages
+    pps, n_split = split_pages(S, Hkv, npps)
+    assert 2 <= pps < npps and n_split > 2
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    n_slots = npps + 2
+    q = rnd(S, 1, Hq, dh)
+    kh, vh = rnd(S, n_slots, ps, Hkv, dh), rnd(S, n_slots, ps, Hkv, dh)
+    st = torch.stack([torch.randperm(n_slots, generator=g, device=cuda)[:npps]
+                      for _ in range(S)]).to(torch.int32)
+    st[0, pps:2 * pps] = -1
+    ln = torch.full((S,), npps * ps, dtype=torch.int32, device=cuda)
+    ln[1] = ps * (pps - 1) + 3
+    ln[2] = npps * ps - 5
+    got = ka.paged_attention_hot_slots(q, kh, vh, st, ln, async_copy=True)
+    sync = ka.paged_attention_hot_slots(q, kh, vh, st, ln)
+    want = ka.paged_attention_hot_slots(q, kh, vh, st, ln, use_kernel=False)
+    base = torch.arange(S, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    gt = torch.where(st >= 0, st + base, torch.full_like(st, -1))
+    flat = ka.paged_attention(q, kh.reshape(-1, ps, Hkv, dh),
+                              vh.reshape(-1, ps, Hkv, dh), gt, ln)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (sync - want).abs().max().item() <= 2e-5
+    else:
+        assert _bf16_ulp_ratio(sync, want) <= 1.0
+    assert torch.equal(sync, flat) and torch.equal(got, sync)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,ps,tensor_cores", [
+    (torch.bfloat16, 128, 16, True), (torch.bfloat16, 64, 16, True),
+    (torch.float32, 128, 16, False), (torch.bfloat16, 128, 8, False),
+    (torch.bfloat16, 96, 16, False)])
+def test_cuda_attention_route_counter_and_split_record(cuda, dtype, dh, ps,
+                                                        tensor_cores):
+    """bf16 at page 16 and dh 64 / 128 takes the tensor-core route and
+    raises its counter once a launch, for each of the three kernels;
+    every other call takes the CUDA-core route and does not. Each launch
+    records the split it passed, the one split_pages gives its shape."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    S, Hq, Hkv, npps = 4, 16, 2, 65
+    n_slots = npps + 1
+    q = rnd(S, 1, Hq, dh)
+    kh, vh = rnd(S, n_slots, ps, Hkv, dh), rnd(S, n_slots, ps, Hkv, dh)
+    st = torch.stack([torch.randperm(n_slots, generator=g, device=cuda)[:npps]
+                      for _ in range(S)]).to(torch.int32)
+    ln = torch.full((S,), npps * ps - 3, dtype=torch.int32, device=cuda)
+    base = torch.arange(S, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    split = dict(zip(("pages_per_split", "n_split"),
+                     pk.split_pages(S, Hkv, npps)),
+                 tensor_cores=tensor_cores)
+    assert pk.tensor_core_route(dtype, ps, dh) == tensor_cores
+    for name, call in (
+            ("paged_attention", lambda: ka.paged_attention(
+                q, kh.reshape(-1, ps, Hkv, dh), vh.reshape(-1, ps, Hkv, dh),
+                st + base, ln)),
+            ("paged_attention_hot_slots",
+             lambda: ka.paged_attention_hot_slots(q, kh, vh, st, ln)),
+            ("paged_attention_hot_slots_async",
+             lambda: ka.paged_attention_hot_slots(q, kh, vh, st, ln,
+                                                  async_copy=True))):
+        n0, t0 = pk._build.counts()[name], pk.paged_attention_mma_launches.n
+        call()
+        torch.cuda.synchronize()
+        assert pk._build.counts()[name] == n0 + 1
+        assert pk.paged_attention_mma_launches.n == t0 + int(tensor_cores)
+        assert pk.last_launch[name] == split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_unaligned_views(cuda, dtype):
+    """q and the pools as views one element into their storage (2-byte
+    aligned in bf16, where the tensor-core route stages pages element by
+    element; 4-byte in f32): the three kernels against the plain version,
+    and async == sync == flat bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+
+    def rnd(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        buf = torch.randn(n + 1, generator=g, device=cuda).to(dtype)
+        return buf[1:].view(shape)
+
+    S, Hq, Hkv, dh, ps, npps = 4, 16, 2, 128, 16, 65
+    n_slots = npps + 2
+    q = rnd(S, 1, Hq, dh)
+    kh, vh = rnd(S, n_slots, ps, Hkv, dh), rnd(S, n_slots, ps, Hkv, dh)
+    assert kh.data_ptr() % 4 == (2 if dtype == torch.bfloat16 else 0)
+    st = torch.randint(-1, n_slots + 1, (S, npps), generator=g, device=cuda,
+                       dtype=torch.int32)
+    ln = torch.randint(1, ps * npps + 1, (S,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    got = ka.paged_attention_hot_slots(q, kh, vh, st, ln, async_copy=True)
+    sync = ka.paged_attention_hot_slots(q, kh, vh, st, ln)
+    want = ka.paged_attention_hot_slots(q, kh, vh, st, ln, use_kernel=False)
+    base = torch.arange(S, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    gt = torch.where((st >= 0) & (st < n_slots), st + base,
+                     torch.full_like(st, -1))
+    flat = ka.paged_attention(q, kh.reshape(-1, ps, Hkv, dh),
+                              vh.reshape(-1, ps, Hkv, dh), gt, ln)
+    torch.cuda.synchronize()
+    live = _has_valid_token(st, n_slots, ln, ps)
+    if dtype == torch.float32:
+        assert (sync[live] - want[live]).abs().max().item() <= 2e-5
+    else:
+        assert _bf16_ulp_ratio(sync[live], want[live]) <= 1.0
+    assert torch.equal(sync, flat) and torch.equal(got, sync)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_rows_over_2048_bytes_raise(cuda):
+    """A K/V row wider than the kernels take (f32 dh 520: 2,080 bytes)
+    raises from the wrapper instead of falling back to the plain version."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    q = torch.zeros(1, 1, 2, 520, device=cuda)
+    kp = torch.zeros(2, 4, 1, 520, device=cuda)
+    pt = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    ln = torch.ones(1, dtype=torch.int32, device=cuda)
+    n0 = pk.paged_attention_launches.n
+    with pytest.raises(ValueError, match="exceed 2048"):
+        ka.paged_attention(q, kp, kp, pt, ln)
+    assert pk.paged_attention_launches.n == n0
 
 
 @pytest.mark.cuda
