@@ -105,7 +105,7 @@ def apply_mamba(p: dict, x: torch.Tensor, d_state: int,
     xc = F.silu(xc)
     dt, bb, cc = _dbc(p, xc, dt_rank, N)
     a = -torch.exp(p["a_log"])
-    y_s, h_fin = selective_scan(dt, bb, cc, xc.float(), a, return_state=True)
+    y_s, h_fin = selective_scan(dt, bb, cc, xc, a, return_state=True)
     out = _gate_out(p, y_s, xc, z, x.dtype)
     if not return_state:
         return out

@@ -326,39 +326,134 @@ def _bf16_ulp_ratio(got, want):
     return ((got - want).abs() / (ulp + 1e-6)).max().item()
 
 
-SCAN_SHAPES = [  # B, S, di, N: S off the 64-step tile, di off the 128 block
+SCAN_SHAPES = [  # B, S, di, N; S in ring terms is read by _ring_steps
     (2, 100, 200, 16),
-    (1, 1, 5, 8),
+    (1, 1, 5, 8),                            # di 5: rows of 20 bytes
     (3, 130, 128, 4),
     (4, 1024, 8192, 16),                     # jamba's prefill widths
+    (2, 1, 64, 16),                          # S = 1
+    (2, "stage-1", 96, 16), (2, "stage", 96, 16), (2, "stage+1", 96, 16),
+    (1, "wrap", 72, 8),                      # the ring wraps twice and more
+    (2, 100, 5, 16), (2, 50, 6, 4),          # di not a multiple of 4
+    (2, 37, 8200, 16),                       # 64-channel blocks, ragged edge
+    (2, 21, 8195, 8),                        # ... on the cp.async route
+    (2, 33, 128, 1), (2, 33, 128, 2),        # N < 4: b / c rows under 16 B
+    (2, 33, 128, 8), (1, 20, 64, 32), (1, 20, 64, 64),  # every other N
 ]
+# the shapes whose contiguous views no tensor map takes: rows of dt (f32) or
+# of x (bf16) that are not a whole number of 16-byte units apart, or b / c
+# rows of N < 4 floats; every other shape takes the TMA route, (1, 1, 5, 8)
+# too (one row of each tensor: no stride to describe)
+SCAN_CP_ASYNC = {(2, 100, 5, 16), (2, 50, 6, 4), (2, 21, 8195, 8),
+                 (2, 33, 128, 1), (2, 33, 128, 2)}
+
+
+def _ring_steps(S):
+    """S of a scan case: a number, or one of a ring stage's time steps less
+    one, itself or one more, or (``"wrap"``) enough to wrap the ring more
+    than twice, from the ring the kernel is built with."""
+    if isinstance(S, int):
+        return S
+    from repro_torch.kernels.selective_scan.kernel import ring_shape
+    tt, stages = ring_shape()
+    return {"stage-1": tt - 1, "stage": tt, "stage+1": tt + 1,
+            "wrap": 2 * tt * stages + 35}[S]
+
+
+def _scan_launch(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the launches it added on each route:
+    ``(out, all routes, TMA route)``."""
+    from repro_torch.kernels.selective_scan import kernel as sk
+    n0, t0 = sk.selective_scan_launches.n, sk.selective_scan_tma_launches.n
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return (out, sk.selective_scan_launches.n - n0,
+            sk.selective_scan_tma_launches.n - t0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,di,N", SCAN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_selective_scan_vs_plain(cuda, B, S, di, N, dtype):
+    """Bitwise equal to the plain version on every shape (the kernel keeps
+    its arithmetic op for op), through the route the shape calls for. In
+    bf16 every input is bf16: dt, b, c, a are cast to f32 by ops, x is
+    read as bf16."""
     from repro_torch.kernels.selective_scan import selective_scan
-    from repro_torch.kernels.selective_scan.kernel import \
-        selective_scan_launches
+    tma = (B, S, di, N) not in SCAN_CP_ASYNC
+    S = _ring_steps(S)
     g = torch.Generator(device=cuda).manual_seed(3)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
     dt = torch.nn.functional.softplus(rnd(B, S, di) - 2).to(dtype)
     b, c, x = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype), \
         rnd(B, S, di).to(dtype)
     a = -torch.exp(rnd(di, N)).to(dtype)
-    n0 = selective_scan_launches.n
-    y, h = selective_scan(dt, b, c, x, a, return_state=True)
+    (y, h), n, n_tma = _scan_launch(selective_scan, dt, b, c, x, a,
+                                    return_state=True)
     y0, h0 = selective_scan(dt, b, c, x, a, return_state=True,
                             use_kernel=False)
-    torch.cuda.synchronize()
-    assert selective_scan_launches.n == n0 + 1
+    assert (n, n_tma) == (1, int(tma))
     assert y.dtype == dtype and h.dtype == torch.float32
-    assert (h - h0).abs().max().item() <= 1e-5
-    if dtype == torch.float32:
-        assert (y - y0).abs().max().item() <= 1e-5
-    else:
-        assert _bf16_ulp_ratio(y, y0) <= 1.0
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+SCAN_MODEL_VIEWS = [  # B, S, di, N, dt_rank, x dtype, TMA route
+    (4, 1024, 8192, 16, 256, torch.bfloat16, True),  # jamba's bf16 prefill
+    (2, 68, 8192, 16, 256, torch.float32, True),     # its f32 check
+    (1, 1, 64, 16, 32, torch.bfloat16, True),        # S = 1
+    (2, 37, 40, 4, 4, torch.float32, True),          # rows of 48 bytes
+    (2, 37, 40, 8, 3, torch.bfloat16, False),        # rows of 76 bytes
+    (2, 37, 5, 16, 1, torch.bfloat16, False),        # di 5, b 4 B off
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,R,xdtype,tma", SCAN_MODEL_VIEWS)
+def test_cuda_selective_scan_model_views_bitwise(cuda, B, S, di, N, R,
+                                                 xdtype, tma):
+    """The inputs as the Mamba mixer hands them over: f32 dt, x in the
+    model's dtype, b and c strided views of one [B, S, R + 2N] projection;
+    no copy is made, and y and h_final are bitwise the plain version's."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import ops as so
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(rnd(B, S, di) - 2)
+    x = rnd(B, S, di).to(xdtype)
+    dbc = rnd(B, S, R + 2 * N)
+    b, c = dbc[..., R:R + N], dbc[..., R + N:]
+    a = -torch.exp(rnd(di, N))
+    views = so._kernel_views(dt, b, c, x, a)
+    assert all(v is t for v, t in zip(views, (dt, b, c, x, a)))
+    (y, h), n, n_tma = _scan_launch(selective_scan, dt, b, c, x, a,
+                                    return_state=True)
+    y0, h0 = selective_scan(dt, b, c, x, a, return_state=True,
+                            use_kernel=False)
+    assert (n, n_tma) == (1, int(tma))
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_raises_on_views_it_does_not_take(cuda):
+    """The kernel's wrapper raises for a view neither route takes (x with
+    a non-unit inner stride, a float16 x) and launches nothing; ops makes
+    its explicit copy / cast first and then launches."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import kernel as sk
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    dt, b, c, a = rnd(2, 9, 32).abs(), rnd(2, 9, 8), rnd(2, 9, 8), \
+        -rnd(32, 8).abs()
+    for x in (rnd(2, 9, 64)[..., ::2], rnd(2, 9, 32).half()):
+        n0 = sk.selective_scan_launches.n
+        with pytest.raises(ValueError):
+            sk.selective_scan_fwd(dt, b, c, x, a)
+        assert sk.selective_scan_launches.n == n0
+        (y, h), n, _ = _scan_launch(selective_scan, dt, b, c, x, a,
+                                    return_state=True)
+        y0, h0 = selective_scan(dt, b, c, x, a, return_state=True,
+                                use_kernel=False)
+        assert n == 1 and torch.equal(y, y0) and torch.equal(h, h0)
 
 
 FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
