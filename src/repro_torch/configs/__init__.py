@@ -51,7 +51,7 @@ def _module(arch: str):
     if name not in PORTED:
         raise NotImplementedError(
             f"config {name!r} is ported in a later slice (ROADMAP queue 1 "
-            f"items 11-12); ported so far: {PORTED}")
+            f"items 2-3); ported so far: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

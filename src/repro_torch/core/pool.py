@@ -15,9 +15,14 @@ jnp indexing does), and a single-element update is a one-hot select, so a
 masked-out update is simply not applied. Functions return new state dicts
 and never modify their inputs.
 
-The ``hot`` / ``pool`` payload arguments exist for the reference's
-signatures and must be ``None``: payload-carrying transactions are ported
-in a later slice. The ``tier_*`` lifecycle transactions are too.
+**Payloads** are a tensor or a dict of tensors: ``hot`` leaves are
+``[S, n_slots, ...]`` (each stream's own hot buffer) and ``pool`` leaves
+``[n_pages, ...]`` (one slow tier every stream reads). The leaves of one
+slot always move together. ``None`` for both is the metadata-only mode:
+the caller applies the returned copy plan itself, as the tiered sweep does
+through the gather kernels. Payload writes return new tensors too. The
+``tier_*`` lifecycle transactions are ported with the §12 lifecycle
+(ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -141,11 +146,48 @@ def _i(x: torch.Tensor) -> torch.Tensor:
     return x.to(I32)
 
 
-def _no_payload(*payloads) -> None:
-    if any(p is not None for p in payloads):
-        raise NotImplementedError(
-            "payload-carrying pool transactions are ported in a later "
-            "slice; pass hot=None, pool=None (metadata only)")
+# ---- payload helpers (reference :464-481) -----------------------------------
+# ``None`` is the metadata-only mode: every helper passes it through.
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    return fn(*trees)
+
+
+def _payload_page(pool, page: torch.Tensor):
+    """Each stream's page ``page [S]`` from every leaf of the slow tier
+    (leaves ``[S, ...]``; the index clamped into range, as jnp gathers)."""
+    return _tree_map(
+        lambda p: p[page.clamp(0, p.shape[0] - 1).long()], pool)
+
+
+def _payload_store(hot, slot: torch.Tensor, val):
+    """``hot`` with each stream's slot ``slot [S]`` set to ``val`` across
+    every leaf (new tensors)."""
+    def one(h, v):
+        h = h.clone()
+        h[cached_arange(h.shape[0], h.device).long(), slot.long()] = v.to(
+            h.dtype)
+        return h
+    return _tree_map(one, hot, val)
+
+
+def _payload_where(cond: torch.Tensor, on_true, on_false):
+    """Per-stream select between two payloads of the same structure."""
+    return _tree_map(
+        lambda b, a: torch.where(
+            cond.reshape(cond.shape + (1,) * (a.dim() - 1)), b, a),
+        on_true, on_false)
+
+
+def _payload_slots(hot, slot: torch.Tensor):
+    """``hot[s, slot[s]]`` for every stream (``slot`` clamped to >= 0)."""
+    return _tree_map(
+        lambda h: h[cached_arange(h.shape[0], h.device).long(),
+                    slot.clamp(min=0).long()], hot)
 
 
 # ---- private helpers (reference :359-516) ------------------------------------
@@ -264,11 +306,11 @@ def pool_access(st: dict, hot, pool, pages: torch.Tensor,
                 lazy: bool = False):
     """Service a batch of page requests ``[S, K]`` against the hot buffers.
 
-    Returns ``(st, None, slots [S, K], info)`` with per-request ``hit``,
-    ``prefetched_hit`` and ``fetched`` masks, as the reference's
-    metadata-only call.
+    Returns ``(st, hot, slots [S, K], info)`` with per-request ``hit``,
+    ``prefetched_hit`` and ``fetched`` masks, as the reference. With a
+    payload, each fetched page's bytes land in its slot of ``hot``; slots
+    eager-freed in the batch stay readable until the next call.
     """
-    _no_payload(hot, pool)
     K = pages.shape[1]
     _check_batch_geometry(st, K, lazy, "pool_access")
     n_pages = st["page_slot"].shape[1]
@@ -300,6 +342,10 @@ def pool_access(st: dict, hot, pool, pages: torch.Tensor,
         st_m["n_prefetch_issued"] = st_m["n_prefetch_issued"] + _i(pref)
         st_m["n_misses"] = st_m["n_misses"] + _i(~pref)
         st = _where(need_fetch, st_m, st)
+        hot = _payload_where(
+            need_fetch,
+            _payload_store(hot, slot_new,
+                           _payload_page(pool, page.clamp(min=0))), hot)
 
         give_back = need_fetch & ~pref & (not lazy)
         if not lazy:
@@ -317,19 +363,23 @@ def pool_access(st: dict, hot, pool, pages: torch.Tensor,
     for s in outs["freed"]:                      # deferred free-stack pushes
         st = _free_push(st, s.clamp(min=0), s >= 0)
     stack = lambda xs: torch.stack(xs, dim=1)
-    return st, None, stack(outs["slot"]), {
+    return st, hot, stack(outs["slot"]), {
         "hit": stack(outs["hit"]), "prefetched_hit": stack(outs["pref_hit"]),
         "fetched": stack(outs["fetched"])}
 
 
 def pool_issue(st: dict, ring: dict, pages: torch.Tensor, valid: torch.Tensor,
                now: torch.Tensor, delay, lazy: bool = False,
-               seq: torch.Tensor | None = None) -> tuple[dict, dict]:
+               seq: torch.Tensor | None = None, true_delay=None,
+               quota: torch.Tensor | None = None) -> tuple[dict, dict]:
     """Enqueue prefetch candidates ``[S, K]`` into the in-flight rings.
 
-    ``delay`` is an int, ``int32[S]`` or ``int32[S, K]`` (clamped to >= 1);
-    entries get ``ready = deadline = now + delay``. A candidate is enqueued
-    only if in range, not resident and not already in flight; a full ring
+    ``delay`` (and ``true_delay``) is an int, ``int32[S]`` or
+    ``int32[S, K]``, clamped to >= 1. Entries get ``deadline = now +
+    delay`` and ``ready = now + true_delay`` (``true_delay=None``: the
+    clean fabric, ``ready == deadline``). A candidate is enqueued only if
+    in range, not resident and not already in flight; a full ring, or a
+    stream past its ``quota int32[S]`` of takes (the chaos grants axis),
     drops it and counts ``n_drops``.
     """
     del lazy
@@ -339,12 +389,19 @@ def pool_issue(st: dict, ring: dict, pages: torch.Tensor, valid: torch.Tensor,
     S, K = pages.shape
     n_pages = st["page_slot"].shape[1]
     dev = pages.device
-    delay = torch.as_tensor(delay, dtype=I32, device=dev).clamp(min=1)
-    if delay.dim() == 1:
-        delay = delay[:, None]
-    delay = delay.expand(S, K)
+
+    def per_cand(d):
+        d = torch.as_tensor(d, dtype=I32, device=dev).clamp(min=1)
+        if d.dim() == 1:
+            d = d[:, None]
+        return d.expand(S, K)
+
+    delay = per_cand(delay)
+    true_delay = delay if true_delay is None else per_cand(true_delay)
     if seq is None:
         seq = torch.zeros((S, K), dtype=I32, device=dev)
+    q = (torch.full((S,), 1 << 30, dtype=I32, device=dev) if quota is None
+         else torch.as_tensor(quota, dtype=I32, device=dev).expand(S))
     pages = pages.to(I32)
     for k in range(K):
         page = pages[:, k]
@@ -355,27 +412,28 @@ def pool_issue(st: dict, ring: dict, pages: torch.Tensor, valid: torch.Tensor,
                      & (ring["page"] >= 0)).any(1)
         want = valid[:, k] & in_range & ~resident & ~in_flight
         free_mask = ring["page"] < 0
-        have_space = free_mask.any(1)
+        have_space = free_mask.any(1) & (q > 0)
         pos = torch.argmax(free_mask.to(I32), dim=1)
         take = want & have_space
         ring = dict(ring)
         ring["page"] = _set(ring["page"], pos, p_safe, take)
-        ring["ready"] = _set(ring["ready"], pos, now + delay[:, k], take)
+        ring["ready"] = _set(ring["ready"], pos, now + true_delay[:, k], take)
         ring["deadline"] = _set(ring["deadline"], pos, now + delay[:, k], take)
         ring["issued_at"] = _set(ring["issued_at"], pos, now, take)
         ring["seq"] = _set(ring["seq"], pos, seq[:, k], take)
         st = dict(st)
         st["n_prefetch_issued"] = st["n_prefetch_issued"] + _i(take)
         ring["n_drops"] = ring["n_drops"] + _i(want & ~have_space)
+        q = q - _i(take)
     return st, ring
 
 
-def _land_due(st: dict, ring: dict, now: torch.Tensor, lazy: bool,
-              land_ok: torch.Tensor | None):
+def _land_due(st: dict, ring: dict, hot, pool, now: torch.Tensor,
+              lazy: bool, land_ok: torch.Tensor | None):
     """Phase 1 of the wait path: land every due (and granted) ring entry.
 
-    Returns ``(st, ring, landed_pages, landed_slots, landed_issued)``,
-    each ``int32[S, R]`` with ``-1`` where nothing landed.
+    Returns ``(st, ring, hot, landed_pages, landed_slots, landed_issued)``,
+    the last three ``int32[S, R]`` with ``-1`` where nothing landed.
     """
     S, R = ring["page"].shape
     dev = ring["page"].device
@@ -393,6 +451,9 @@ def _land_due(st: dict, ring: dict, now: torch.Tensor, lazy: bool,
         st_c["clock"] = st_c["clock"] + 1
         st_c = _map_slot(st_c, slot, p_safe, torch.ones_like(commit))
         st = _where(commit, st_c, st)
+        hot = _payload_where(
+            commit, _payload_store(hot, slot, _payload_page(pool, p_safe)),
+            hot)
         lp.append(torch.where(commit, p_safe, neg))
         ls.append(torch.where(commit, slot, neg))
         li.append(torch.where(commit, ring["issued_at"][:, i], neg))
@@ -404,14 +465,15 @@ def _land_due(st: dict, ring: dict, now: torch.Tensor, lazy: bool,
         ring["page"][:, i] = torch.where(due, neg, p)
     if R == 0:
         empty = torch.zeros((S, 0), dtype=I32, device=dev)
-        return st, ring, empty, empty, empty
+        return st, ring, hot, empty, empty, empty
     stack = lambda xs: torch.stack(xs, dim=1)
-    return st, ring, stack(lp), stack(ls), stack(li)
+    return st, ring, hot, stack(lp), stack(ls), stack(li)
 
 
-def _serve_demand(st: dict, ring: dict, page: torch.Tensor,
+def _serve_demand(st: dict, ring: dict, hot, pool, page: torch.Tensor,
                   now: torch.Tensor, lazy: bool):
-    """Phase 2 of the wait path: serve one demand access per stream."""
+    """Phase 2 of the wait path: serve one demand access per stream.
+    Returns ``(st, ring, hot, out_slot, info)``."""
     R = ring["page"].shape[1]
     n_pages = st["page_slot"].shape[1]
     in_range = (page >= 0) & (page < n_pages)
@@ -448,6 +510,9 @@ def _serve_demand(st: dict, ring: dict, page: torch.Tensor,
     st_f, slot_new = _alloc_slot(st, lazy)
     st_f = _map_slot(st_f, slot_new, p_safe, torch.zeros_like(need_fetch))
     st = _where(need_fetch, st_f, st)
+    hot = _payload_where(
+        need_fetch, _payload_store(hot, slot_new, _payload_page(pool, p_safe)),
+        hot)
     give_back = need_fetch & (not lazy)
     if not lazy:
         st = _where(give_back, _unmap(st, slot_new), st)
@@ -459,7 +524,30 @@ def _serve_demand(st: dict, ring: dict, page: torch.Tensor,
                            torch.where(need_fetch, slot_new, none))
     info = {"hit": resident, "prefetched_hit": was_pref_hit,
             "partial_hit": partial, "fetched": need_fetch}
-    return st, ring, out_slot, info
+    return st, ring, hot, out_slot, info
+
+
+def pool_wait(st: dict, ring: dict, hot, pool, page: torch.Tensor,
+              now: torch.Tensor, lazy: bool = False,
+              land_ok: torch.Tensor | None = None):
+    """Wait phase with one demand page a stream (``page int32[S]``): land
+    every due (and granted, ``land_ok bool[S, R]``) ring entry, then serve
+    the demand (resident hit, partial hit on an in-flight entry, or miss).
+
+    Returns ``(st, ring, hot, slot [S], data, info)``: ``data`` is the
+    serving slot's payload (leaves ``[S, ...]``; ``None`` metadata-only);
+    ``info`` has the ``[S]`` masks ``hit`` / ``prefetched_hit`` /
+    ``partial_hit`` / ``fetched`` and the landing copy plan ``landed`` /
+    ``landed_pages`` / ``landed_slots`` / ``landed_issued`` ``[S, R]``.
+    """
+    page = page.to(I32)
+    st, ring, hot, lp, ls, li = _land_due(st, ring, hot, pool, now, lazy,
+                                          land_ok)
+    st, ring, hot, out_slot, info = _serve_demand(st, ring, hot, pool, page,
+                                                  now, lazy)
+    info = dict(info, landed=lp >= 0, landed_pages=lp, landed_slots=ls,
+                landed_issued=li)
+    return st, ring, hot, out_slot, _payload_slots(hot, out_slot), info
 
 
 def pool_wait_batch(st: dict, ring: dict, hot, pool, pages: torch.Tensor,
@@ -468,20 +556,21 @@ def pool_wait_batch(st: dict, ring: dict, hot, pool, pages: torch.Tensor,
     """Wait phase with a multi-page demand batch ``[S, D]``: land due ring
     arrivals once, then serve the D demands in order.
 
-    Returns ``(st, ring, None, slots [S, D], info)``; ``info`` has the
+    Returns ``(st, ring, hot, slots [S, D], info)``; ``info`` has the
     per-demand masks and the landing copy plan ``landed`` /
     ``landed_pages`` / ``landed_slots`` / ``landed_issued`` ``[S, R]``.
     """
-    _no_payload(hot, pool)
     _check_batch_geometry(st, pages.shape[1], lazy, "pool_wait_batch")
-    st, ring, lp, ls, li = _land_due(st, ring, now, lazy, land_ok)
+    st, ring, hot, lp, ls, li = _land_due(st, ring, hot, pool, now, lazy,
+                                          land_ok)
     cols = {"slot": [], "hit": [], "prefetched_hit": [], "partial_hit": [],
             "fetched": []}
     pages = pages.to(I32)
     for d in range(pages.shape[1]):
         page = torch.where(valid[:, d], pages[:, d],
                            torch.full_like(pages[:, d], NO_PAGE))
-        st, ring, slot, info = _serve_demand(st, ring, page, now, lazy)
+        st, ring, hot, slot, info = _serve_demand(st, ring, hot, pool, page,
+                                                  now, lazy)
         cols["slot"].append(slot)
         for k in ("hit", "prefetched_hit", "partial_hit", "fetched"):
             cols[k].append(info[k])
@@ -490,7 +579,7 @@ def pool_wait_batch(st: dict, ring: dict, hot, pool, pages: torch.Tensor,
                                         "partial_hit", "fetched")}
     info.update(landed=lp >= 0, landed_pages=lp, landed_slots=ls,
                 landed_issued=li)
-    return st, ring, None, stack(cols["slot"]), info
+    return st, ring, hot, stack(cols["slot"]), info
 
 
 def pool_invalidate(st: dict, ring: dict, pages: torch.Tensor,
@@ -522,6 +611,18 @@ def pool_invalidate(st: dict, ring: dict, pages: torch.Tensor,
             ring["page"] = _set(ring["page"], mi, NO_PAGE, inflight)
             st["n_pollution"] = st["n_pollution"] + _i(inflight)
     return st, ring
+
+
+def link_grants(ring: dict, now: torch.Tensor, cap) -> torch.Tensor:
+    """Budgeted landing grants across the stacked rings of one shared link:
+    due entries (``ready <= now``) in ascending global ``seq`` up to
+    ``cap`` landings this step. Returns ``bool[S, R]``."""
+    due = (ring["page"] >= 0) & (ring["ready"] <= now[:, None])
+    flat_due = due.reshape(-1)
+    flat_seq = ring["seq"].reshape(-1)
+    rank = (flat_due[None, :]
+            & (flat_seq[None, :] < flat_seq[:, None])).sum(1)
+    return (flat_due & (rank < cap)).reshape(due.shape)
 
 
 def link_grants_sharded(ring: dict, now: torch.Tensor, caps: torch.Tensor,

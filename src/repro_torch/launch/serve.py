@@ -23,8 +23,15 @@ config, ``--layers`` cuts its depth). Runs on the GPU unless ``--device
 cpu`` is given. Exits non-zero on a tiered/flat pin break, with
 ``--trace`` on trace totals that diverge from the pool counters, and on
 the continuous path on unfinished requests, a page leak or a
-page-conservation break. ``--shards > 1``, ``--chaos`` and the §12
-lifecycle are ported in later slices.
+page-conservation break. ``--shards N`` shards the cold pool over N home
+shards on the flat data plane (``--placement``, ``--far-delay``, a per-NIC
+``--link-budget``); ``--chaos SPEC.json`` adds the batch path's chaos
+sidecar. The §12 lifecycle flags are ROADMAP queue 1 item 1.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \
+      --smoke --device cpu --batch 2 --prompt-len 16 --gen 4 --paged \
+      --async-datapath --page-size 4 --shards 4 --placement interleave \
+      --far-delay 2 --link-budget 2 --chaos spec.json
 """
 
 from __future__ import annotations
@@ -44,8 +51,7 @@ from repro_torch.obs.export import (write_chrome_trace, write_jsonl,
 from repro_torch.obs.metrics import Registry
 from repro_torch.paging.tiered_kv import normalize_attn_kernel
 from repro_torch.runtime.straggler import StepTimeMonitor
-from repro_torch.serving.batch_driver import (check_one_shard,
-                                              serve_batch_tiered)
+from repro_torch.serving.batch_driver import serve_batch_tiered
 from repro_torch.serving.engine import (ServeConfig, ServingEngine,
                                         build_executor)
 from repro_torch.serving.executor import ModelExecutor
@@ -73,9 +79,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batch, with --paged: page streams (stream s "
                          "sweeps request s %% batch); 1 = one per request")
     ap.add_argument("--shards", type=int, default=1,
-                    help="batch: cold-pool shards; > 1 is not ported yet")
+                    help="with --paged: shard the cold paged-KV pool over "
+                         "this many home shards, each behind its own NIC "
+                         "(DESIGN.md §7); on one GPU the flat data plane "
+                         "moves the bytes. Default 1 = flat cold pool")
+    ap.add_argument("--placement", choices=("block", "interleave"),
+                    default="interleave",
+                    help="with --shards: page -> home-shard policy "
+                         "(interleave spreads consecutive pages across "
+                         "NICs; block keeps contiguous ranges together)")
+    ap.add_argument("--far-delay", type=int, default=2,
+                    help="with --shards: prefetch arrival delay in chunk "
+                         "steps for cross-shard pages (near pages take 1)")
     ap.add_argument("--chaos", default=None, metavar="SPEC.json",
-                    help="batch: chaos sidecar; not ported yet")
+                    help="with --paged: inject faults from a ChaosSpec JSON "
+                         "file (DESIGN.md §9) into a chaos sidecar run over "
+                         "the requests' context-page schedules — per-shard "
+                         "slowdown, NIC budget degradation, node loss with "
+                         "page re-homing, elastic tenant grants. Reports "
+                         "per-shard estimated vs true delay (the adaptive-"
+                         "deadline EWMA) plus timely-hit counters")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=None,
                     help="continuous engine: concurrent serving slots "
@@ -101,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "admission wait on memory)")
     ap.add_argument("--link-budget", type=int, default=None,
                     help="pages/step the shared link moves across all "
-                         "streams' prefetches (demand first)")
+                         "streams' prefetches (demand first); with "
+                         "--shards > 1 the budget is per shard NIC")
     ap.add_argument("--paged", action="store_true",
                     help="batch: replay the decode window through the "
                          "tiered paged-KV path, pinned to the flat pool; "
@@ -164,7 +188,6 @@ def _main_batch(args, model=None, prompts=None) -> dict:
     the prompts come from ``--seed + 1``. The result carries the
     reference's keys plus the emitted ``tokens``."""
     dev = resolve_device(args.device)
-    check_one_shard(args)
     if model is None:
         model = build_model(model_config(args), device=dev, seed=args.seed)
     cfg = model.cfg
@@ -236,7 +259,8 @@ def _main_continuous(args) -> dict:
         length_jitter=args.length_jitter, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, chunk=args.chunk,
         ring_size=args.ring_size, async_datapath=args.async_datapath,
-        link_budget=args.link_budget,
+        link_budget=args.link_budget, shards=args.shards,
+        placement=args.placement, far_delay=args.far_delay,
         attn_kernel=normalize_attn_kernel(args.attn_kernel),
         arrival=args.arrival, think_time=args.think_time, seed=args.seed,
         gang=args.gang, pool_pages=args.pool_pages, trace=bool(args.trace))
@@ -247,7 +271,14 @@ def _main_continuous(args) -> dict:
     engine = ServingEngine(scfg, executor, device=args.device)
     result = engine.run()
     if args.trace:
-        write_chrome_trace(args.trace, engine.events,
+        counters = None
+        if engine.link_hist:
+            counters = {"link_demand_fetches":
+                        np.concatenate(engine.link_hist)}
+            if args.shards > 1:
+                counters["shard_demand_fetches"] = np.concatenate(
+                    engine.shard_hist)
+        write_chrome_trace(args.trace, engine.events, counters,
                            request_phases=engine.phases)
         write_jsonl(args.trace + ".jsonl", engine.events)
         write_request_jsonl(args.trace + ".requests.jsonl", engine.phases)

@@ -5,7 +5,7 @@ Counterpart of ``repro.models.attention``. Both share its contract:
 statistics in float32; outputs in the input dtype. Its TPU layout flags
 (``attn_bf16``, ``decode_tsh``) stay off, as in its default; sliding
 windows and logit soft-capping wait for the configs that use them (ROADMAP
-queue 1 item 12).
+queue 1 item 3).
 
 * :func:`decode_attention` — one query position against a ``[B,T,...]``
   cache, masked to ``length``; plain PyTorch, as the reference's is jnp.

@@ -8,7 +8,7 @@ norms and rotary compute in float32 and cast back. The inits draw from an
 explicit ``torch.Generator``; they follow the reference's distributions,
 not its ``jax.random`` bits. LayerNorm, GeGLU, M-RoPE and the chunked
 cross-entropy wait for the slices that need them (ROADMAP queue 1 items
-12-13).
+3-4).
 """
 
 from __future__ import annotations

@@ -73,7 +73,7 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     if act != "silu":
         raise NotImplementedError(f"MoE act={act!r} is ported with the "
                                   "families that use it (ROADMAP queue 1 "
-                                  "item 12)")
+                                  "item 3)")
     B, S, D = x.shape
     E = p["wr"].shape[1]
     w, ids, aux = router(x.reshape(B * S, D), p["wr"], top_k)

@@ -25,9 +25,9 @@ with a SwiGLU MLP, RMSNorm, RoPE) and the hybrid family of jamba (Mamba or
 attention mixers, MLP or MoE feed-forwards, ``rope_type="none"``).
 Prefill attention goes through the flash-attention kernel on the card;
 Mamba prefill through the selective-scan kernel. The MoE family's configs
-(ROADMAP queue 1 item 11), xLSTM layers, the encoder-decoder family,
+(ROADMAP queue 1 item 2), xLSTM layers, the encoder-decoder family,
 M-RoPE, LayerNorm, GeGLU, sliding windows and logit soft-capping raise
-``NotImplementedError`` (items 11-12).
+``NotImplementedError`` (items 2-3).
 """
 
 from __future__ import annotations
@@ -67,18 +67,18 @@ def check_supported(cfg: ModelConfig) -> None:
         if hit:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is ported in a later slice (ROADMAP "
-                "queue 1 item 12)")
+                "queue 1 item 3)")
     for kind in cfg.layer_kinds():
         if kind["ff"] == "moe" and (cfg.family != "hybrid"
                                     or cfg.n_shared_experts):
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers outside the hybrid family (the MoE "
                 "family's configs, shared experts, expert paging) are "
-                "ported in a later slice (ROADMAP queue 1 item 11)")
+                "ported in a later slice (ROADMAP queue 1 item 2)")
         if kind["mix"] not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind['mix']} layers are ported in a later "
-                "slice (ROADMAP queue 1 item 12)")
+                "slice (ROADMAP queue 1 item 3)")
 
 
 class Norm(nn.Module):

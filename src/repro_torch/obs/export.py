@@ -1,15 +1,15 @@
 """Trace export: Chrome trace-event (Perfetto-loadable) JSON and JSONL.
 
 The writers of ``repro.obs.export`` that the serving CLI's ``--trace``
-uses; the per-link counter tracks of the sharded fabric come with the
-fabric's port:
+uses:
 
 * :func:`write_chrome_trace` — the Chrome trace-event format (the
   ``{"traceEvents": [...]}`` JSON object) that ``chrome://tracing`` and
   https://ui.perfetto.dev load directly. Each stream gets its own track
   (thread) of complete events laid out on the lock-step clock (one step =
-  ``STEP_US`` µs of track time), and each request its own track in a
-  "requests" process.
+  ``STEP_US`` µs of track time), each request its own track in a
+  "requests" process, and the per-step link totals counter tracks in a
+  "fabric link" process (one series a NIC on a sharded fabric).
 * :func:`write_jsonl` / :func:`write_request_jsonl` — one event (or request
   phase) per line, for machine diffing.
 
@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+
+import numpy as np
 
 from .trace import Event
 
@@ -32,8 +34,9 @@ _DUR = {"land": 0.25, "defer": 0.2, "migrate": 0.1, "hit": 0.2,
         "partial": 0.25, "miss": 0.35, "invalidate": 0.1, "promote": 0.05,
         "demote": 0.05, "issue": 0.25, "drop": 0.1, "evict": 0.1}
 
-#: process ids as in the reference's traces (its pid 1 is the fabric link)
+#: process ids as in the reference's traces
 _STREAM_PID = 0
+_LINK_PID = 1
 _REQUEST_PID = 2
 
 #: track time of one lock step, in µs
@@ -48,18 +51,25 @@ def _event_name(e: Event) -> str:
     return e.kind
 
 
-def write_chrome_trace(path: str, events, request_phases=None) -> None:
+def write_chrome_trace(path: str, events, counters: dict | None = None,
+                       request_phases=None) -> None:
     """Write the Chrome trace-event JSON object of an event stream to
     ``path``.
 
-    ``request_phases``: optional :class:`repro_torch.obs.trace.RequestPhase`
-    records, one track per request id.
+    ``counters``: optional ``{name: array}`` of per-step link totals —
+    ``[T]`` arrays become one counter track, ``[T, G]`` arrays one
+    multi-series track (a series a NIC); step ``t`` samples at ``t *
+    STEP_US``. ``request_phases``: optional
+    :class:`repro_torch.obs.trace.RequestPhase` records, one track per
+    request id.
     """
     events = list(events)
     phases = list(request_phases or ())
     max_step = max((e.step for e in events), default=0)
     out = [{"ph": "M", "pid": _STREAM_PID, "name": "process_name",
-            "args": {"name": "page streams"}}]
+            "args": {"name": "page streams"}},
+           {"ph": "M", "pid": _LINK_PID, "name": "process_name",
+            "args": {"name": "fabric link"}}]
     if phases:
         out.append({"ph": "M", "pid": _REQUEST_PID, "name": "process_name",
                     "args": {"name": "requests"}})
@@ -98,6 +108,17 @@ def write_chrome_trace(path: str, events, request_phases=None) -> None:
             out.append({"ph": "X", "pid": _STREAM_PID, "tid": e.stream,
                         "ts": ts, "dur": _DUR[e.kind] * STEP_US,
                         "name": _event_name(e), "cat": e.kind, "args": args})
+
+    for name, arr in (counters or {}).items():
+        arr = np.asarray(arr)
+        for t in range(arr.shape[0]):
+            if arr.ndim == 1:
+                series = {"value": int(arr[t])}
+            else:
+                series = {f"nic{g}": int(arr[t, g])
+                          for g in range(arr.shape[1])}
+            out.append({"ph": "C", "pid": _LINK_PID, "name": name,
+                        "ts": t * STEP_US, "args": series})
 
     with open(path, "w") as f:
         json.dump({"traceEvents": out, "displayTimeUnit": "ms"}, f)

@@ -1,10 +1,11 @@
 """Page-lifecycle event log: schema and the tiered-sweep decoder.
 
-A copy of the framework-neutral parts of ``repro.obs.trace`` the serving
-engine needs: :class:`Event`, :class:`RequestPhase`,
-:func:`summary_events`, :func:`decode_sweep_events` and
-:func:`events_to_counts`. Decoding is host-side and post-hoc over the
-sweep's count arrays (numpy views of the port's tensors).
+A copy of the framework-neutral parts of ``repro.obs.trace`` the port
+needs: :class:`Event`, :class:`RequestPhase`, :func:`summary_events`,
+:func:`decode_stream_events` (the page-stream layer's and the sharded
+consume's mask-granularity ``info``), :func:`decode_sweep_events` (the
+tiered sweep's counts) and :func:`events_to_counts`. Decoding is host-side
+and post-hoc over numpy views of the port's tensors.
 """
 
 from __future__ import annotations
@@ -100,6 +101,18 @@ class RequestPhase:
                              f"expected one of {REQUEST_PHASES}")
 
 
+def home_of_host(page: int, n_pages: int, n_shards: int,
+                 placement: str) -> int:
+    """Host-side ``page_home`` (same formula, plain ints); ``-1`` on one
+    shard."""
+    if n_shards <= 1:
+        return -1
+    p = min(max(int(page), 0), n_pages - 1)
+    if placement == "interleave":
+        return p % n_shards
+    return p // (n_pages // n_shards)
+
+
 def summary_events(final_stats, step: int = -1) -> list[Event]:
     """End-of-run ``drop``/``evict`` summary events from per-stream stats.
 
@@ -115,6 +128,63 @@ def summary_events(final_stats, step: int = -1) -> list[Event]:
         if pollution:
             out.append(Event("evict", step, s, count=pollution))
     return out
+
+
+def decode_stream_events(schedules, info, *, n_pages: int,
+                         final_stats=None, n_shards: int = 1,
+                         placement: str = "interleave",
+                         step_offset: int = 0) -> list[Event]:
+    """Expand mask-granularity ``[S, T]`` stream info into events.
+
+    ``schedules`` is the ``[S, T]`` demand page ids (``[T]`` for one
+    stream), ``info`` the info of ``stream_consume`` /
+    ``multi_stream_consume`` / ``sharded_multi_stream_consume``.
+    ``n_pages`` / ``n_shards`` / ``placement`` stamp each demand event's
+    home shard. Per step: ``land`` / ``defer`` aggregates (the wait
+    phase), each stream's demand event (``hit`` / ``partial`` / ``miss``,
+    page-level), then ``issue`` aggregates; with ``final_stats`` the
+    ``drop`` / ``evict`` run totals follow at ``step = -1``. (The
+    reference's migration kinds come with the §12 lifecycle.)
+    """
+    sched = np.asarray(schedules)
+    if sched.ndim == 1:
+        sched = sched[None]
+    S, T = sched.shape
+    hit = np.asarray(info["hit"]).reshape(S, T)
+    pref = np.asarray(info["pref_hit"]).reshape(S, T)
+    part = np.asarray(info["partial_hit"]).reshape(S, T)
+    issued = np.asarray(info["issued"]).reshape(S, T)
+    landed = np.asarray(info["landed"]).reshape(S, T)
+    deferred = np.asarray(info["deferred"]).reshape(S, T)
+    home = lambda p: home_of_host(p, n_pages, n_shards, placement)
+
+    events = []
+    for t in range(T):
+        step = step_offset + t
+        for s in range(S):
+            if landed[s, t]:
+                events.append(Event("land", step, s,
+                                    count=int(landed[s, t])))
+            if deferred[s, t]:
+                events.append(Event("defer", step, s,
+                                    count=int(deferred[s, t])))
+        for s in range(S):
+            p = int(sched[s, t])
+            if part[s, t]:
+                events.append(Event("partial", step, s, page=p,
+                                    shard=home(p), pref=True))
+            elif hit[s, t]:
+                events.append(Event("hit", step, s, page=p, shard=home(p),
+                                    pref=bool(pref[s, t])))
+            else:
+                events.append(Event("miss", step, s, page=p, shard=home(p)))
+        for s in range(S):
+            if issued[s, t]:
+                events.append(Event("issue", step, s,
+                                    count=int(issued[s, t])))
+    if final_stats is not None:
+        events.extend(summary_events(final_stats))
+    return events
 
 
 def decode_sweep_events(info, *, final_stats=None,

@@ -1,17 +1,42 @@
-"""The one-shard subset of the sharded cold pool (``paging/sharded_pool.py``).
+"""Sharded cold pool: per-shard NICs, placement, near/far asymmetry.
 
-On a single H100 the tiered sweep runs the degenerate one-shard fabric: the
-whole link budget on one NIC, every page near. A fabric of more than one
-shard is ported in a later slice; asking for it raises.
+Counterpart of ``repro.paging.sharded_pool`` on its flat data plane. The
+cold pool is split over ``n_shards`` home shards (one NIC each); a page's
+home comes from its placement (``"block"`` or ``"interleave"``,
+:func:`repro_torch.core.pool.page_home`). Scheduling follows the topology:
+
+* **per-shard link budgets**: each NIC moves ``link_budget`` pages a step,
+  demand first, its leftover landing prefetches homed on it in global
+  issue order (:func:`repro_torch.core.pool.link_grants_sharded`);
+* **near/far delays**: a prefetch of a page homed on the consuming
+  stream's own shard (stream ``s`` lives on shard ``s % n_shards``)
+  arrives after ``near_delay`` steps, a cross-shard one after
+  ``far_delay``.
+
+On one GPU the bytes move by plain indexing of the local cold pool (the
+reference's flat plane); placement, budgets and delays shape what lands
+when. The reference's second plane, ``shard_map`` with ``ppermute`` ring
+rotations over a device mesh, has no counterpart yet: a ``mesh`` raises
+(ROADMAP queue 1 item 5), as does the §12 ``migration`` lifecycle (item 1).
+``chaos`` (:class:`repro_torch.fabric.chaos.ChaosSpec`) injects the four
+fault axes into the consume scan.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.core.pool import PLACEMENTS
+from repro_torch.core.leap import leap_step_batched
+from repro_torch.core.pool import (NO_PAGE, PLACEMENTS, _tree_map,
+                                   link_grants_sharded, page_home,
+                                   pool_invalidate, pool_issue, pool_wait)
+from repro_torch.device import cached_arange
+from repro_torch.paging.prefetch_serving import _payload_checksum, stream_init
+
+I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,20 +61,64 @@ class ShardedPoolCfg:
 
 def stream_homes(n_streams: int, n_shards: int, device=None) -> torch.Tensor:
     """Home shard of each stream: ``s % n_shards``."""
-    return torch.remainder(torch.arange(n_streams, dtype=torch.int32,
+    return torch.remainder(torch.arange(n_streams, dtype=I32,
                                         device=device), n_shards)
+
+
+def place_perm(n_pages: int, fabric: ShardedPoolCfg) -> np.ndarray:
+    """Permutation putting pages in home-major order: ``placed[i] =
+    cold[perm[i]]``, so shard g's slice ``[g*pps, (g+1)*pps)`` holds
+    exactly the pages homed on g, each at its ``page_local`` index."""
+    if n_pages % fabric.n_shards:
+        raise ValueError(f"n_pages={n_pages} not divisible by "
+                         f"n_shards={fabric.n_shards}")
+    pages = np.arange(n_pages)
+    pps = n_pages // fabric.n_shards
+    if fabric.placement == "interleave":
+        home, local = pages % fabric.n_shards, pages // fabric.n_shards
+    else:
+        home, local = pages // pps, pages % pps
+    perm = np.empty(n_pages, np.int64)
+    perm[home * pps + local] = pages
+    return perm
+
+
+def place_cold(cold, n_pages: int, fabric: ShardedPoolCfg):
+    """Permute every payload leaf's page axis into home-major order."""
+    return _tree_map(lambda c: c[torch.from_numpy(
+        place_perm(n_pages, fabric)).to(c.device)], cold)
 
 
 def check_fabric_topology(n_pages: int, fabric: ShardedPoolCfg,
                           mesh=None) -> None:
-    """Entry-point validation; more than one shard is not ported yet."""
-    if fabric.n_shards > 1 or mesh is not None:
+    """Entry-point validation: the pool must split evenly over the shards.
+    A mesh (the reference's ``shard_map`` plane) is not ported."""
+    if mesh is not None:
         raise NotImplementedError(
-            "a sharded cold pool (n_shards > 1 or a mesh) is ported in a "
-            "later slice; see ROADMAP")
+            "mesh=: the shard_map data plane's torch.distributed twin is "
+            "ROADMAP queue 1 item 5; pass mesh=None (the flat plane, the "
+            "same bytes and schedule)")
     if n_pages % fabric.n_shards:
         raise ValueError(f"n_pages={n_pages} not divisible by "
                          f"n_shards={fabric.n_shards}")
+
+
+def check_no_migration(migration) -> None:
+    """The §12 lifecycle is not ported; ``None`` or a disabled config
+    passes."""
+    if migration is not None and getattr(migration, "enabled", True):
+        raise NotImplementedError(
+            "migration=: the §12 page lifecycle is ROADMAP queue 1 item 1")
+
+
+# --------------------------------------------------------------------------
+# the flat data plane
+# --------------------------------------------------------------------------
+def _gather_flat(cold, pages: torch.Tensor):
+    """Plain local gather of ``pages`` (any shape; clamped into range) from
+    every leaf of the cold pool."""
+    return _tree_map(
+        lambda c: c[pages.clamp(0, c.shape[0] - 1).long()], cold)
 
 
 def scatter_hot(hot: dict, data: dict, dst: torch.Tensor,
@@ -61,10 +130,215 @@ def scatter_hot(hot: dict, data: dict, dst: torch.Tensor,
     Masked-out entries write nothing, even where they name a live entry's
     slot. The live slots of one stream must be distinct: a scatter with
     duplicate indices has no defined order on CUDA. The tiered sweep's copy
-    plans never name one slot twice in a chunk step (a test pins this).
+    plans never name one slot twice in a chunk step (a test pins this); a
+    consume step's could only if more pages landed in it than the hot
+    buffer has slots (``ring_size + 1 > n_slots``; the chaos sidecar gives
+    every page a slot).
     """
     s_idx, k_idx = mask.nonzero(as_tuple=True)
     d_idx = dst[s_idx, k_idx].long()
-    for name, h in hot.items():
-        h[s_idx, d_idx] = data[name][s_idx, k_idx].to(h.dtype)
+    for name, h in (hot.items() if isinstance(hot, dict) else [(None, hot)]):
+        d = data if name is None else data[name]
+        h[s_idx, d_idx] = d[s_idx, k_idx].to(h.dtype)
     return hot
+
+
+# --------------------------------------------------------------------------
+# the consume scan
+# --------------------------------------------------------------------------
+def _consume_flat(cold, schedules: torch.Tensor, geom,
+                  fabric: ShardedPoolCfg, chaos=None):
+    """Lock-step multi-stream consume over the sharded cold pool (the
+    reference's ``_consume_impl`` on the flat plane). Per step:
+
+    1. **grant**: shard g's landing capacity is ``link_budget`` less last
+       step's demand fetches homed on g; due ring entries homed on g land
+       in ascending global ``seq`` up to it;
+    2. **wait/serve**: metadata-only :func:`pool_wait` with the grants;
+    3. **issue**: the controllers' candidates, stamped with the global
+       ``seq`` and the near/far deadline of their home;
+    4. the copy plan (landings, then the demand fetch) moves the bytes.
+
+    With ``chaos`` the step also kills the lost node's pages at its death
+    step, takes the per-step budgets, dilates the physical delays, caps
+    issues by the elastic grants, re-homes the dead shard's pages for
+    scheduling, and updates the Q8 EWMA deadline estimate ``est_q [S, G]``
+    from this step's landings (returned as ``info["est_q"]``).
+    """
+    schedules = schedules.to(I32)
+    S, T = schedules.shape
+    K = geom.pw_max
+    G = fabric.n_shards
+    n_pages = geom.n_pages
+    budget = fabric.link_budget
+    dev = schedules.device
+    homes_s = stream_homes(S, G, dev)
+    stream_ids = cached_arange(S, dev)
+    shard_ids = cached_arange(G, dev)
+    cand_ids = cached_arange(K, dev)
+
+    cz = None
+    if chaos is not None:
+        from repro_torch.fabric.chaos import (EST_ONE, compile_chaos,
+                                              est_init, est_step)
+        cz = compile_chaos(chaos, n_steps=T, n_streams=S, n_shards=G,
+                           n_pages=n_pages, placement=fabric.placement,
+                           base_budget=budget)
+        tab = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        dil_t, bud_t, grant_t = (tab(cz[k]) for k in ("dilation", "budget",
+                                                      "grant"))
+        home_tab = tab(cz["home"]).long()                   # [2, n_pages]
+        t_fail = cz["t_fail"]
+        dead = tab(cz["dead_pages"])
+        est_q = tab(est_init(S, G, fabric.near_delay, fabric.far_delay))
+
+    state = (stream_init(geom, cold.dtype, n_streams=S, device=cold.device)
+             if torch.is_tensor(cold) else
+             stream_init(geom, payload_like=cold, n_streams=S))
+    d_prev = torch.zeros((G,), dtype=I32, device=dev)
+    cols = {k: [] for k in ("sums", "hit", "pref_hit", "partial_hit",
+                            "fetched", "issued", "landed", "deferred",
+                            "shard_d", "link_i", "link_def")}
+    for t in range(T):
+        pages = schedules[:, t]
+        meta, ring, hot = state["pool_meta"], state["ring"], state["hot"]
+        now = ring["now"]
+        if cz is None:
+            _home = lambda x: page_home(x, n_pages, G, fabric.placement)
+        else:
+            # scheduling home map, re-homed from the death step on; the
+            # data plane keeps gathering from the physical placement
+            hv = home_tab[1 if t_fail is not None and t >= t_fail else 0]
+            _home = lambda x, hv=hv: hv[x.clamp(0, n_pages - 1).long()].to(
+                I32)
+            if t_fail is not None and t == t_fail:
+                # node death at the top of the step: the dead shard's
+                # resident prefetches and in-flight fetches are lost
+                kill = dead[None].expand(S, dead.shape[0])
+                meta, ring = pool_invalidate(meta, ring, kill,
+                                             torch.ones_like(kill,
+                                                             dtype=torch.bool))
+
+        # --- per-shard landing grants (leftover NIC budget, global seq) ---
+        if cz is not None:
+            caps = (bud_t[t] - d_prev).clamp(min=0)
+            allowed = link_grants_sharded(ring, now, caps, _home(ring["page"]))
+        elif budget is None:
+            allowed = torch.ones(ring["page"].shape, dtype=torch.bool,
+                                 device=dev)
+        else:
+            caps = (budget - d_prev).clamp(min=0)
+            allowed = link_grants_sharded(ring, now, caps, _home(ring["page"]))
+        # --- wait/serve (metadata only; the copy plan is applied below) ---
+        deferred0 = meta["n_deferred"]
+        meta, ring, _, slot, _, winfo = pool_wait(meta, ring, None, None,
+                                                  pages, now, land_ok=allowed)
+        if cz is not None:
+            # EWMA update from this step's landings: the realized delay,
+            # bucketed per (stream, home shard); column G drops
+            lp, li = winfo["landed_pages"], winfo["landed_issued"]
+            lmask = lp >= 0
+            homes_l = torch.where(lmask, _home(lp), G).long()
+            obs = torch.where(lmask, now[:, None] - li, 0).to(I32)
+            obs_sum = torch.zeros((S, G + 1), dtype=I32, device=dev
+                                  ).scatter_add_(1, homes_l, obs)[:, :G]
+            cnt = torch.zeros((S, G + 1), dtype=I32, device=dev
+                              ).scatter_add_(1, homes_l, lmask.to(I32))[:, :G]
+            est_q = torch.where(cnt > 0,
+                                est_step(est_q, obs_sum, cnt.clamp(min=1)),
+                                est_q)
+        homes_d = _home(pages)
+        d_t = ((homes_d[:, None] == shard_ids[None, :])
+               & winfo["fetched"][:, None]).sum(0, dtype=I32)
+        # --- controllers + globally ordered, distance-delayed issue ------
+        pref_feedback = winfo["prefetched_hit"] | winfo["partial_hit"]
+        new_leap, cands, valid = leap_step_batched(
+            state["leap"], pages, pref_feedback, n_split=geom.n_split,
+            pw_max=geom.pw_max)
+        val = valid & (cands >= 0) & (cands < n_pages)
+        seq = (t * S + stream_ids)[:, None] * K + cand_ids[None, :]
+        homes_c = _home(cands)
+        base = torch.where(homes_c == homes_s[:, None],
+                           torch.full_like(homes_c, fabric.near_delay),
+                           torch.full_like(homes_c, fabric.far_delay))
+        issued0 = meta["n_prefetch_issued"]
+        if cz is None:
+            meta, ring = pool_issue(meta, ring, cands, val, now, base,
+                                    seq=seq)
+        else:
+            true_delay = base * dil_t[t][homes_c.long()]
+            if chaos.adaptive_deadline:
+                eg = torch.gather(est_q, 1, homes_c.long())
+                deadline = ((eg + EST_ONE // 2) // EST_ONE).clamp(min=1)
+            else:
+                deadline = base
+            # elastic grant: cap the stream's unconsumed-resident +
+            # in-flight footprint; issues beyond the cap are drops
+            res_unused = ((meta["slot_page"] >= 0) & meta["slot_prefetched"]
+                          & ~meta["slot_consumed"]).sum(1, dtype=I32)
+            occ = (ring["page"] >= 0).sum(1, dtype=I32)
+            quota = (grant_t[t] - res_unused - occ).clamp(min=0)
+            meta, ring = pool_issue(meta, ring, cands, val, now, deadline,
+                                    seq=seq, true_delay=true_delay,
+                                    quota=quota)
+        ring = dict(ring)
+        ring["now"] = now + 1
+        issued_s = meta["n_prefetch_issued"] - issued0
+        deferred_s = meta["n_deferred"] - deferred0
+        # --- data plane: replay the copy plan (landings, then demand) ----
+        src = torch.cat([winfo["landed_pages"],
+                         torch.where(winfo["fetched"], pages,
+                                     torch.full_like(pages, NO_PAGE))[:, None]],
+                        1)
+        dst = torch.cat([winfo["landed_slots"], slot[:, None]], 1)
+        msk = torch.cat([winfo["landed"], winfo["fetched"][:, None]], 1)
+        scatter_hot(hot, _gather_flat(cold, src), dst, msk)
+        served = _tree_map(lambda h: h[stream_ids.long(),
+                                       slot.clamp(min=0).long()], hot)
+        state = {"leap": new_leap, "pool_meta": meta, "hot": hot,
+                 "ring": ring}
+        d_prev = d_t
+        for k, v in (("sums", _payload_checksum(served)),
+                     ("hit", winfo["hit"]),
+                     ("pref_hit", winfo["prefetched_hit"]),
+                     ("partial_hit", winfo["partial_hit"]),
+                     ("fetched", winfo["fetched"]), ("issued", issued_s),
+                     ("landed", winfo["landed"].sum(1, dtype=I32)),
+                     ("deferred", deferred_s), ("shard_d", d_t),
+                     ("link_i", issued_s.sum(dtype=I32)),
+                     ("link_def", deferred_s.sum(dtype=I32))):
+            cols[k].append(v)
+    per = lambda k: torch.stack(cols[k], 1)                   # [S, T]
+    shard_d = torch.stack(cols["shard_d"])                    # [T, G]
+    info = {"hit": per("hit"), "pref_hit": per("pref_hit"),
+            "partial_hit": per("partial_hit"), "fetched": per("fetched"),
+            "issued": per("issued"), "landed": per("landed"),
+            "deferred": per("deferred"),
+            "shard_demand_fetches": shard_d,
+            "link_demand_fetches": shard_d.sum(1, dtype=I32),
+            "link_prefetch_issued": torch.stack(cols["link_i"]),
+            "link_deferred": torch.stack(cols["link_def"])}
+    if cz is not None:
+        info["est_q"] = est_q                                  # [S, G]
+    return state, per("sums"), info
+
+
+def sharded_multi_stream_consume(cold, schedules: torch.Tensor, geom,
+                                 fabric: ShardedPoolCfg, mesh=None,
+                                 chaos=None, migration=None):
+    """Concurrent streams ``schedules int32[S, T]`` over the sharded cold
+    pool (``cold``: a tensor or a dict of ``[n_pages, ...]`` leaves in
+    page-id order), on the async issue/wait path (``geom.ring_size > 0``).
+
+    Returns ``(state, data_sums [S, T], info)`` as the reference: the
+    stream ``info`` columns ``[S, T]``, the per-NIC
+    ``shard_demand_fetches [T, n_shards]``, the link totals ``[T]`` and,
+    with ``chaos``, the final ``est_q int32[S, n_shards]``. ``mesh`` and
+    ``migration`` raise (not ported).
+    """
+    if geom.ring_size <= 0:
+        raise ValueError("sharded consume needs the async issue/wait ring "
+                         "(geom.ring_size > 0)")
+    check_fabric_topology(geom.n_pages, fabric, mesh)
+    check_no_migration(migration)
+    return _consume_flat(cold, schedules, geom, fabric, chaos)

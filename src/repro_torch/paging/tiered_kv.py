@@ -1,17 +1,19 @@
 """Tiered paged-KV: a Leap-managed hot pool per stream feeding decode attention.
 
-Counterpart of ``src/repro/paging/tiered_kv.py`` on the single-link path
-(``fabric=None``; a sharded cold pool, a mesh and the §12 lifecycle maps are
-ported in later slices and raise here). The state is a dict of
-``{"leap", "pool_meta", "ring", "hot"}`` whose leaves carry a leading
-stream dimension, where the reference vmaps. The chunked sweep is a Python
-loop over chunk steps; each step runs the metadata transactions for all
-streams at once, then moves the bytes through one gather-kernel call per
-K/V leaf (``gather_pages`` on the sync path, ``gather_pages_async`` on the
-async path). Attention then reads the hot tier: unfused through the
-stacked pool and the flat kernel (``"kernel"``) or its plain version
-(``"ref"``), or in place through the hot-slot kernel (``"fused"``) or its
-``cp.async`` double-buffered twin (``"fused_async"``).
+Counterpart of ``src/repro/paging/tiered_kv.py``: on the single-link path
+(``fabric=None``) and on a sharded cold pool's flat data plane (``fabric``
+of any shard count: per-NIC budgets, near/far deadlines). A ``mesh`` (the
+reference's ``shard_map`` plane, ROADMAP queue 1 item 5) and the §12
+lifecycle maps (item 1) raise here. The state is a dict of ``{"leap",
+"pool_meta", "ring", "hot"}`` whose leaves carry a leading stream
+dimension, where the reference vmaps. The chunked sweep is a Python loop
+over chunk steps; each step runs the metadata transactions for all streams
+at once, then moves the bytes through one gather-kernel call per K/V leaf
+(``gather_pages`` on the sync path, ``gather_pages_async`` on the async
+path), whatever the shard count. Attention then reads the hot tier: unfused
+through the stacked pool and the flat kernel (``"kernel"``) or its plain
+version (``"ref"``), or in place through the hot-slot kernel (``"fused"``)
+or its ``cp.async`` double-buffered twin (``"fused_async"``).
 
 Functions return new state dicts. Two write into the state they are given:
 :func:`tiered_sweep` writes the copied pages into the hot tier's K/V
@@ -259,11 +261,17 @@ def tiered_sweep(state: dict, cold: dict, page_rows: torch.Tensor,
     """Sweep every stream's context pages ``page_rows int32[S, npps]``
     through its hot pool, chunked; returns ``(state, info)`` with per-stream
     ``int32[S, n_chunks]`` counts and the link / per-NIC demand columns,
-    as the reference. ``-1`` entries are skipped."""
+    as the reference. ``-1`` entries are skipped.
+
+    ``fabric`` (:class:`ShardedPoolCfg`) shards the cold pool: the budget
+    becomes per NIC and prefetch deadlines near / far by home shard
+    (stream s lives on shard ``s % n_shards``); ``link_budget`` is then
+    ignored. ``cold`` stays in page-id order: the bytes move by the same
+    gather launches as on one shard."""
     if home_map is not None or comp_map is not None or decompress_delay:
         raise NotImplementedError(
-            "the tier lifecycle maps (home_map / comp_map) are ported in a "
-            "later slice; see ROADMAP")
+            "the tier lifecycle maps (home_map / comp_map) are the §12 "
+            "lifecycle, ROADMAP queue 1 item 1")
     S, npps = page_rows.shape
     if geom.n_slots < tiered_min_slots(npps, geom):
         raise ValueError(
@@ -357,12 +365,15 @@ def tiered_attention(q: torch.Tensor, state: dict, page_rows: torch.Tensor,
 def tiered_decode_step(state: dict, cold: dict, q: torch.Tensor,
                        page_rows: torch.Tensor, lengths: torch.Tensor,
                        geom: TieredKV, *, async_datapath: bool = False,
-                       link_budget: int | None = None, attn_kernel="ref"):
+                       link_budget: int | None = None,
+                       fabric: ShardedPoolCfg | None = None, mesh=None,
+                       attn_kernel="ref"):
     """Sweep, then attend over the hot tier; returns
     ``(state, out, info, all_resident)``."""
     state, info = tiered_sweep(state, cold, page_rows, geom,
                                async_datapath=async_datapath,
-                               link_budget=link_budget)
+                               link_budget=link_budget, fabric=fabric,
+                               mesh=mesh)
     out, ok = tiered_attention(q, state, page_rows, lengths,
                                attn_kernel=attn_kernel)
     return state, out, info, ok

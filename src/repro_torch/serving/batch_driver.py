@@ -1,6 +1,6 @@
-"""Lock-step batch serving: the fixed-batch tiered replay.
+"""Lock-step batch serving: the fixed-batch tiered replay + chaos sidecar.
 
-Counterpart of ``repro.serving.batch_driver`` on one shard. Every request
+Counterpart of ``repro.serving.batch_driver``. Every request
 of the batch prefills together, decodes together and finishes together
 (``launch/serve.py --arrival batch``). :func:`serve_batch_tiered` then
 replays the decode window through the tiered paged-KV data path: it
@@ -10,9 +10,12 @@ written page in every stream's hot tier, sweeps each request's context
 pages through its hot pool and serves attention from the hot slots, pinned
 **bitwise** against the flat pool every step.
 
-The sharded cold pool (``--shards > 1``) and the chaos sidecar
-(``--chaos``) wait for the sharded fabric (ROADMAP queue 1 item 9); asking
-for them raises ``SystemExit``. The per-step query comes from a
+``--shards > 1`` shards the cold pool over home shards on the flat data
+plane (the reference builds a device mesh there; the port's
+``torch.distributed`` twin of that plane is ROADMAP queue 1 item 5, and
+the reference pins the two planes bitwise equal). ``--chaos`` adds
+:func:`chaos_sidecar`, run on the serve's device. The per-step query comes
+from a
 ``torch.Generator`` seeded with ``100 + t`` (the reference draws it with
 ``jax.random``; the pin compares within one framework, so only the integer
 outcomes carry across).
@@ -30,6 +33,7 @@ from repro_torch.obs.trace import (Event, decode_sweep_events,
 from repro_torch.paging.kv_cache import (append_kv, init_paged_kv,
                                          linear_page_table,
                                          paged_decode_attention)
+from repro_torch.paging.sharded_pool import ShardedPoolCfg
 from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
                                           tiered_attention, tiered_init,
                                           tiered_invalidate, tiered_min_slots,
@@ -39,16 +43,6 @@ from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
 #: whenever a trace is written
 PINNED_COUNTERS = ("hits", "misses", "partial_hits", "prefetch_hits",
                    "prefetch_issued", "deferred", "ring_drops", "pollution")
-
-
-def check_one_shard(args) -> None:
-    """``SystemExit`` for what needs the sharded fabric."""
-    if getattr(args, "shards", 1) > 1:
-        raise SystemExit("--shards > 1: the sharded cold pool is ported with "
-                         "the sharded fabric (ROADMAP queue 1 item 9)")
-    if getattr(args, "chaos", None):
-        raise SystemExit("--chaos: the chaos sidecar is ported with the "
-                         "sharded fabric (ROADMAP queue 1 item 9)")
 
 
 def find_dense_kv(state) -> tuple[torch.Tensor, torch.Tensor] | \
@@ -69,13 +63,14 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
     """Replay the decode window through the tiered paged-KV data path.
 
     ``args`` carries the CLI's ``page_size``, ``streams``, ``chunk``,
-    ``ring_size``, ``async_datapath``, ``link_budget``, ``attn_kernel`` and
-    ``gen``. With ``trace_path`` the per-sweep info is decoded host-side,
-    after each timed window, into the page-lifecycle event log on the
-    global chunk-step clock, written as a Chrome trace + JSONL, and the
-    event-type totals are pinned against the final pool counters.
+    ``ring_size``, ``async_datapath``, ``link_budget``, ``shards``,
+    ``placement``, ``far_delay``, ``chaos``, ``attn_kernel`` and ``gen``.
+    With ``trace_path`` the per-sweep info is decoded host-side, after each
+    timed window, into the page-lifecycle event log on the global
+    chunk-step clock, written as a Chrome trace + JSONL (with the link and,
+    sharded, the per-NIC demand counter tracks), and the event-type totals
+    are pinned against the final pool counters.
     """
-    check_one_shard(args)
     ps = args.page_size
     npps = -(-max_len // ps)
     n_pages = B * npps
@@ -116,13 +111,25 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
     tstate = tiered_init(geom, n_streams, dtype, dev)
     rows = torch.stack([pt_full[s % B] for s in range(n_streams)])
 
+    fabric = None
+    if args.shards > 1:
+        if n_pages % args.shards:
+            raise SystemExit(f"--shards {args.shards} must divide the "
+                             f"{n_pages}-page cold pool")
+        fabric = ShardedPoolCfg(n_shards=args.shards,
+                                placement=args.placement,
+                                link_budget=args.link_budget,
+                                near_delay=1, far_delay=args.far_delay)
+
     reg = reg if reg is not None else Registry()
     attn_mode = normalize_attn_kernel(getattr(args, "attn_kernel", "ref"))
     n_chunks = -(-npps // geom.chunk)      # global clock: chunk steps
     events = [] if trace_path else None
+    link_hist, shard_hist = [], []
     equiv_ok = True
     first_bad_step = None
     deferred = partials = 0
+    shard_demand = np.zeros(args.shards, np.int64)
     for t in range(args.gen - 1):
         pos = prompt_len + t
         append_kv(pool, 0, kd[:, pos], vd[:, pos], pt_full, pos)
@@ -141,7 +148,8 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
         with reg.span("tiered_sweep") as sp:
             tstate, info = tiered_sweep(tstate, cold, rows, geom,
                                         async_datapath=args.async_datapath,
-                                        link_budget=args.link_budget)
+                                        link_budget=args.link_budget,
+                                        fabric=fabric)
             sp.sync = info
         with reg.span("tiered_attention") as sp:
             tiered, resident = tiered_attention(q, tstate, rows, lengths,
@@ -156,12 +164,16 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
         info_np = {k: v.cpu().numpy() for k, v in info.items()}
         deferred += int(info_np["deferred"].sum())
         partials += int(info_np["partial_hit"].sum())
+        if fabric is not None:
+            shard_demand += info_np["shard_demand_fetches"].sum(0)
         if events is not None:
             step0 = t * n_chunks           # each sweep advances the stream
             inv_np = inv_pages.cpu().numpy()  # clock by n_chunks steps
             events.extend(Event("invalidate", step0, s, page=int(inv_np[s]))
                           for s in range(n_streams))
             events.extend(decode_sweep_events(info_np, step_offset=step0))
+            link_hist.append(info_np["link_demand_fetches"])
+            shard_hist.append(info_np["shard_demand_fetches"])
 
     per = [tiered_stats(tstate, s) for s in range(n_streams)]
     t_tiered = (reg.histogram("tiered_sweep").total
@@ -185,6 +197,10 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
     if args.link_budget is not None:
         out["paged_link_budget"] = args.link_budget
         out["paged_deferred"] = deferred
+    if args.shards > 1:
+        out["paged_shards"] = args.shards
+        out["paged_placement"] = args.placement
+        out["paged_shard_demand"] = shard_demand.tolist()
     if first_bad_step is not None:
         out["tiered_first_bad_step"] = first_bad_step
     spans = reg.summary()["histograms"]
@@ -195,9 +211,80 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
         cnts = events_to_counts(events, n_streams)
         totals_ok = all(cnts[s][k] == per[s][k] for s in range(n_streams)
                         for k in PINNED_COUNTERS)
-        write_chrome_trace(trace_path, events)
+        counters = {"link_demand_fetches": np.concatenate(link_hist)}
+        if args.shards > 1:
+            counters["shard_demand_fetches"] = np.concatenate(shard_hist)
+        write_chrome_trace(trace_path, events, counters)
         write_jsonl(trace_path + ".jsonl", events)
         out["trace_path"] = trace_path
         out["trace_events"] = len(events)
         out["trace_totals_ok"] = totals_ok
+    if args.chaos:
+        out.update(chaos_sidecar(args, rows, n_pages, n_streams))
     return out
+
+
+def chaos_sidecar(args, rows: torch.Tensor, n_pages: int,
+                  n_streams: int) -> dict:
+    """Replay the requests' context-page schedules under a ChaosSpec.
+
+    The sidecar drives the chaos-enabled sharded consume
+    (:func:`repro_torch.paging.sharded_pool.sharded_multi_stream_consume`)
+    over the same physical pages the tiered path serves, on the device
+    ``rows`` lies on: each stream walks its context pages cyclically for
+    ``min(max(4 * npps, 48), 256)`` steps while the spec's faults
+    (stragglers, budget cuts, node loss, grant churn) hit the fabric. The
+    report compares the adaptive-deadline EWMA's per-shard delay estimate
+    with the true (dilated) delay at the end of the run.
+    """
+    from repro_torch.fabric.chaos import EST_ONE, ChaosSpec, compile_chaos
+    from repro_torch.paging.prefetch_serving import (PrefetchedStream,
+                                                     stream_stats_at)
+    from repro_torch.paging.sharded_pool import sharded_multi_stream_consume
+
+    with open(args.chaos) as f:
+        spec = ChaosSpec.from_json(f.read())
+    G = max(args.shards, 1)
+    if n_pages % G:
+        raise SystemExit(f"--chaos sidecar: {n_pages}-page pool not "
+                         f"divisible by {G} shards")
+    npps = rows.shape[1]
+    T = min(max(4 * npps, 48), 256)
+    scheds = torch.stack([rows[s][torch.arange(T, device=rows.device) % npps]
+                          for s in range(n_streams)]).to(torch.int32)
+    geom = PrefetchedStream(n_pages=n_pages, n_slots=n_pages, page_elems=4,
+                            ring_size=args.ring_size)
+    fab = ShardedPoolCfg(n_shards=G, placement=args.placement,
+                         link_budget=args.link_budget,
+                         near_delay=1, far_delay=args.far_delay)
+    cold = torch.arange(n_pages * 4, dtype=torch.float32,
+                        device=rows.device).reshape(n_pages, 4)
+    st, _, info = sharded_multi_stream_consume(cold, scheds, geom, fab,
+                                               chaos=spec)
+    per = [stream_stats_at(st, s) for s in range(n_streams)]
+    faults = sum(p["faults"] for p in per)
+    hits = sum(p["prefetch_hits"] for p in per)
+    deferred = sum(p["deferred"] for p in per)
+    cz = compile_chaos(spec, n_steps=T, n_streams=n_streams, n_shards=G,
+                       n_pages=n_pages, placement=args.placement,
+                       base_budget=args.link_budget)
+    # final per-shard delay: estimate (stream-averaged EWMA, steps) against
+    # the true dilated delay at the last step (stream-averaged near/far)
+    est = info["est_q"].cpu().numpy().astype(np.float64) / EST_ONE
+    home = np.arange(n_streams) % G
+    base = np.where(np.arange(G)[None, :] == home[:, None],
+                    1, args.far_delay)
+    true = base * np.asarray(cz["dilation"][-1], dtype=np.float64)[None, :]
+    return {
+        "chaos_spec": args.chaos,
+        "chaos_steps": T,
+        "chaos_shards": G,
+        "chaos_faults": faults,
+        "chaos_prefetch_hits": hits,
+        "chaos_deferred": deferred,
+        "chaos_timely_rate": round((hits - deferred) / max(1, faults), 3),
+        "chaos_pollution": sum(p["pollution"] for p in per),
+        "chaos_est_delay": [round(float(v), 2) for v in est.mean(0)],
+        "chaos_true_delay": [round(float(v), 2) for v in true.mean(0)],
+        "chaos_adaptive_deadline": spec.adaptive_deadline,
+    }

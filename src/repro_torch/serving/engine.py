@@ -12,8 +12,9 @@ and ``"kernel"`` against the flat kernel, ``"ref"`` against the flat plain
 version. The
 per-step query comes from a ``torch.Generator`` seeded with ``1000 + t``.
 The engine updates its cold pool and tiered state in place between steps.
-A sharded cold pool and the §12 migration lifecycle are ported in later
-slices and raise here.
+``shards > 1`` shards the cold pool (``placement``, ``far_delay``, a
+per-NIC ``link_budget``) on the flat data plane; a ``mesh`` (ROADMAP
+queue 1 item 5) and the §12 migration lifecycle (item 1) raise here.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ from repro_torch.obs.trace import (Event, RequestPhase, decode_sweep_events,
                                    events_to_counts, summary_events)
 from repro_torch.paging.kv_cache import (PageAllocator, init_paged_kv,
                                          paged_decode_attention)
+from repro_torch.paging.sharded_pool import (ShardedPoolCfg,
+                                             check_fabric_topology,
+                                             check_no_migration)
 from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
                                           tiered_attention, tiered_init,
                                           tiered_invalidate, tiered_min_slots,
@@ -48,7 +52,7 @@ PINNED_COUNTERS = ("hits", "misses", "partial_hits", "prefetch_hits",
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Static configuration of one continuous-batching serving run (the
-    reference's fields; ``shards > 1`` and ``migration`` are not ported)."""
+    reference's fields; ``migration`` is not ported)."""
 
     requests: int = 8
     slots: int = 4
@@ -62,6 +66,8 @@ class ServeConfig:
     async_datapath: bool = False
     link_budget: int | None = None
     shards: int = 1
+    placement: str = "interleave"
+    far_delay: int = 2
     use_kernel: bool = True
     attn_kernel: str = "ref"
     arrival: str = "bursty"
@@ -97,16 +103,14 @@ class ServingEngine:
     ``executor`` needs ``begin/end``, ``prefill_chunk``, ``decode`` and the
     ``n_kv_heads / head_dim / dtype`` attributes (``n_q_heads`` optional);
     its K/V may be tensors or numpy arrays. ``device=None`` means CUDA.
+    ``mesh`` must be ``None``: with ``shards > 1`` the engine serves the
+    sharded cold pool's flat data plane.
     """
 
-    def __init__(self, config: ServeConfig, executor, device=None):
+    def __init__(self, config: ServeConfig, executor, device=None,
+                 mesh=None):
         c = config
-        if c.shards > 1:
-            raise NotImplementedError("ServeConfig.shards > 1: the sharded "
-                                      "cold pool is ported in a later slice")
-        if c.migration is not None and getattr(c.migration, "enabled", True):
-            raise NotImplementedError("ServeConfig.migration: the §12 page "
-                                      "lifecycle is ported in a later slice")
+        check_no_migration(c.migration)
         self.cfg = config
         self.ex = executor
         self.device = resolve_device(device)
@@ -119,6 +123,7 @@ class ServingEngine:
             raise ValueError(f"pool_pages={c.pool_pages} is below the "
                              f"tiered residency floor ({floor} pages)")
         n_pages = max(c.pool_pages or c.slots * self.npps, floor)
+        n_pages = -(-n_pages // c.shards) * c.shards      # shardable pool
         self.n_pages = n_pages
         self.allocator = PageAllocator(n_pages)
         self.sched = SlotScheduler(c.slots, self.allocator, c.page_size,
@@ -145,9 +150,18 @@ class ServingEngine:
         self.tstate = tiered_init(self.geom, c.slots, self.dtype, self.device)
         self.pool = init_paged_kv(1, n_pages, c.page_size, hkv, dh,
                                   self.dtype, self.device)
+        self.fabric = None
+        if c.shards > 1:
+            self.fabric = ShardedPoolCfg(
+                n_shards=c.shards, placement=c.placement,
+                link_budget=c.link_budget, near_delay=1,
+                far_delay=c.far_delay)
+        check_fabric_topology(n_pages, self.fabric or ShardedPoolCfg(), mesh)
         self.reg = Registry()
         self.phases: list[RequestPhase] = []
         self.events: list[Event] | None = [] if c.trace else None
+        self.link_hist: list[np.ndarray] = []
+        self.shard_hist: list[np.ndarray] = []
         self.counter_base = [dict.fromkeys(PINNED_COUNTERS, 0)
                              for _ in range(c.slots)]
         self.equiv_ok = True
@@ -191,7 +205,7 @@ class ServingEngine:
             self.tstate, info = tiered_sweep(
                 self.tstate, cold, rows_t, self.geom,
                 async_datapath=self.cfg.async_datapath,
-                link_budget=self.cfg.link_budget)
+                link_budget=self.cfg.link_budget, fabric=self.fabric)
             sp.sync = info
         mode = normalize_attn_kernel(self.cfg.attn_kernel)
         with self.reg.span("tiered_attention") as sp:
@@ -211,6 +225,8 @@ class ServingEngine:
             info_np = {k: v.cpu().numpy() for k, v in info.items()}
             self.events.extend(
                 decode_sweep_events(info_np, step_offset=self._chunk_clock))
+            self.link_hist.append(info_np["link_demand_fetches"])
+            self.shard_hist.append(info_np["shard_demand_fetches"])
         self._chunk_clock += self._n_chunks
 
     # -- one engine step -----------------------------------------------------
@@ -347,6 +363,9 @@ class ServingEngine:
         if self.events is not None:
             out["trace_totals_ok"] = trace_totals_ok
             out["trace_events"] = len(self.events)
+        if c.shards > 1:
+            out["shards"] = c.shards
+            out["placement"] = c.placement
         return out
 
 

@@ -84,14 +84,21 @@ def test_batch_driver_matches_the_reference(monkeypatch, tmp_path, mode):
 
 
 def test_find_dense_kv_and_unported_options():
+    """``find_dense_kv``; and ``--shards`` must divide the cold pool. (The
+    name is kept so the test's id stays: ``--shards > 1`` and ``--chaos``
+    used to raise here and are now held against the reference in
+    ``tests/test_torch_sharded.py``.)"""
     kc = torch.zeros(1, 5, 2, 4)
     state = {"blocks": [{"conv": kc, "h": kc}, {"k": kc, "v": kc + 1}]}
     k, v = tbd.find_dense_kv(state)
     assert k is kc and float(v.max()) == 1.0
     assert tbd.find_dense_kv({"blocks": [{"conv": kc}]}) == (None, None)
-    for bad in (dict(shards=2), dict(chaos="spec.json")):
-        with pytest.raises(SystemExit, match="item 9"):
-            tbd.check_one_shard(_args(**bad))
+    cfg = jcfg.get_smoke_config("jamba_v01_52b")
+    kv = torch.zeros(B, P + G, cfg.n_kv_heads, cfg.head_dim)
+    state = {"blocks": [{"k": kv, "v": kv}]}
+    n_pages = B * -(-(P + G) // 4)                          # 10 pages
+    with pytest.raises(SystemExit, match=f"must divide the {n_pages}-page"):
+        tbd.serve_batch_tiered(cfg, state, _args(shards=4), B, P, P + G)
 
 
 def test_cli_batch_on_cpu_exits_zero_and_needs_cpu_asked(monkeypatch,

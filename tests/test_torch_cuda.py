@@ -569,3 +569,64 @@ def test_cuda_one_jamba_block_prefill_matches_decode(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(full).all()
     assert ((logits - full).abs() <= 5e-3 + 5e-3 * full.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_dp,placement,budget", [
+    (False, "block", None), (True, "interleave", 2)])
+def test_cuda_four_shard_sweep_equals_the_cpu_sweep(cuda, async_dp,
+                                                    placement, budget):
+    """A sweep of the cold pool over four home shards: on the card (the
+    gather kernels move the bytes) and on the CPU (their plain version)
+    the same integers and the same hot bytes, three sweeps with a write
+    between them; then the hot-tier attention equals the flat pool's
+    bitwise on the card."""
+    from repro_torch.kernels import _build
+    from repro_torch.paging import tiered_kv as tt
+    from repro_torch.paging.kv_cache import paged_decode_attention
+    from repro_torch.paging.sharded_pool import ShardedPoolCfg
+
+    S, npps, ps, hkv, dh = 4, 12, 16, 2, 64
+    n_pages = S * npps
+    geom = tt.TieredKV(n_pages, tt.tiered_min_slots(
+        npps, tt.TieredKV(n_pages, 1, ps, hkv, dh)), ps, hkv, dh)
+    fabric = ShardedPoolCfg(n_shards=4, placement=placement,
+                            link_budget=budget, far_delay=3)
+    g = torch.Generator().manual_seed(3)
+    cold = {k: torch.randn((n_pages, ps, hkv, dh), generator=g).to(
+        torch.bfloat16) for k in ("k", "v")}
+    rows = (torch.arange(S)[:, None] * npps
+            + (torch.arange(npps)[None] * 5) % npps).to(torch.int32)
+    rows[2, 9:] = -1
+    states = {d: tt.tiered_init(geom, S, torch.bfloat16, d)
+              for d in ("cpu", "cuda")}
+    colds = {"cpu": cold, "cuda": {k: v.to(cuda) for k, v in cold.items()}}
+    name = "gather_pages_async" if async_dp else "gather_pages"
+    n0 = _build.counts().get(name, 0)
+    for sweep in range(3):
+        if sweep:                       # a write between sweeps
+            inv = rows[:, sweep:sweep + 1]
+            for d in states:
+                colds[d]["k"][inv[:, 0].clamp(min=0).long()] += 1
+                states[d] = tt.tiered_invalidate(states[d], inv.to(d))
+        infos = {}
+        for d in states:
+            states[d], infos[d] = tt.tiered_sweep(
+                states[d], colds[d], rows.to(d), geom,
+                async_datapath=async_dp, fabric=fabric)
+        for k in infos["cpu"]:
+            assert torch.equal(infos["cpu"][k], infos["cuda"][k].cpu()), k
+        for group in ("leap", "pool_meta", "ring", "hot"):
+            for k, v in states["cpu"][group].items():
+                assert torch.equal(v, states["cuda"][group][k].cpu()), \
+                    (sweep, group, k)
+    assert _build.counts()[name] > n0
+    lengths = torch.tensor([180, 100, 144, 7], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((S, 1, 8, dh), generator=g).to(torch.bfloat16).to(cuda)
+    out, ok = tt.tiered_attention(q, states["cuda"], rows.to(cuda), lengths,
+                                  attn_kernel="fused")
+    flat = paged_decode_attention(
+        q, {k: v[None] for k, v in colds["cuda"].items()}, 0, rows.to(cuda),
+        lengths, use_kernel=True)
+    assert bool(ok) and torch.equal(out, flat)

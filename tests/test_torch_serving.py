@@ -207,11 +207,17 @@ def test_engine_synthetic_bf16_gqa_drains_clean():
 
 
 def test_unported_engine_options_raise():
+    """The §12 lifecycle and a mesh raise; ``shards > 1`` builds the
+    sharded engine on the flat data plane, its pool rounded up to split
+    over the shards (``tests/test_torch_sharded.py`` holds its runs
+    against the reference)."""
     ex = SyntheticExecutor(2, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(ServeConfig(shards=2), ex, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ServingEngine(ServeConfig(shards=2), ex, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 1"):
         ServingEngine(ServeConfig(migration=object()), ex, device="cpu")
+    eng = ServingEngine(ServeConfig(shards=3), ex, device="cpu")
+    assert eng.n_pages % 3 == 0 and eng.fabric.n_shards == 3
 
 
 @pytest.mark.parametrize("extra", [[], ["--async-datapath",
@@ -255,18 +261,18 @@ def test_model_cli_fused_async_writes_the_trace(tmp_path):
 
 def test_chrome_trace_matches_the_reference_writer(tmp_path):
     """The port's Chrome trace of one engine run equals the reference
-    writer's on the same events and request phases, less the reference's
-    fabric-link process (the port has no link counters)."""
+    writer's on the same events, link counters and request phases."""
     from repro.obs.export import to_chrome_trace
     from repro_torch.obs.export import write_chrome_trace
     eng = ServingEngine(ServeConfig(**CFG, async_datapath=True),
                         NumpyExecutor(), device="cpu")
     eng.run()
     out = tmp_path / "t.json"
-    write_chrome_trace(str(out), eng.events, request_phases=eng.phases)
-    want = to_chrome_trace(eng.events, request_phases=eng.phases)
-    want["traceEvents"] = [e for e in want["traceEvents"]
-                           if e.get("pid") != 1]
+    counters = {"link_demand_fetches": np.concatenate(eng.link_hist),
+                "shard_demand_fetches": np.concatenate(eng.shard_hist)}
+    write_chrome_trace(str(out), eng.events, counters,
+                       request_phases=eng.phases)
+    want = to_chrome_trace(eng.events, counters, request_phases=eng.phases)
     assert json.loads(out.read_text()) == json.loads(json.dumps(want))
 
 

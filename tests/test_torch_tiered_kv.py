@@ -178,6 +178,10 @@ def test_bf16_hand_over_round_trips_bytes():
 
 
 def test_undersized_hot_pool_and_unported_options_raise():
+    """An undersized hot tier, the §12 lifecycle maps and a mesh raise; a
+    fabric of more than one shard sweeps (``tests/test_torch_sharded.py``
+    holds it against the reference) unless the pool does not split over
+    its shards."""
     _, tg = _geoms()
     small = tt.TieredKV(N_PAGES, 4, PS, HKV, DH)
     cold = tree_from_numpy(_inputs()[0], CPU)
@@ -186,11 +190,17 @@ def test_undersized_hot_pool_and_unported_options_raise():
         tt.tiered_sweep(tt.tiered_init(small, B, torch.float32, CPU), cold,
                         rows, small)
     st = tt.tiered_init(tg, B, torch.float32, CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 1"):
         tt.tiered_sweep(st, cold, rows, tg, home_map=torch.zeros(N_PAGES))
     from repro_torch.paging.sharded_pool import ShardedPoolCfg
-    with pytest.raises(NotImplementedError):
-        tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=2))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=2),
+                        mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=3))
+    _, info = tt.tiered_sweep(st, cold, rows, tg,
+                              fabric=ShardedPoolCfg(n_shards=2))
+    assert info["shard_demand_fetches"].shape == (-(-NPPS // tg.chunk), 2)
 
 
 def test_scatter_hot_last_live_writer_wins():
