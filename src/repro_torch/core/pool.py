@@ -20,9 +20,13 @@ and never modify their inputs.
 ``[n_pages, ...]`` (one slow tier every stream reads). The leaves of one
 slot always move together. ``None`` for both is the metadata-only mode:
 the caller applies the returned copy plan itself, as the tiered sweep does
-through the gather kernels. Payload writes return new tensors too. The
-``tier_*`` lifecycle transactions are ported with the §12 lifecycle
-(ROADMAP queue 1 item 1).
+through the gather kernels. Payload writes return new tensors too.
+
+The ``tier_*`` transactions of the three-tier lifecycle (DESIGN.md §12)
+carry no stream dim: one table of ``[n_pages]`` leaves (home shard,
+compressed bit, heat, last transition) that every stream shares, as in the
+reference. The reference's ``mode="drop"`` scatters write into one extra
+column that is then cut off.
 """
 
 from __future__ import annotations
@@ -61,6 +65,129 @@ def page_local(pages: torch.Tensor, n_pages: int, n_shards: int,
     if placement == "interleave":
         return torch.div(p, n_shards, rounding_mode="floor").to(I32)
     return torch.remainder(p, n_pages // n_shards).to(I32)
+
+
+# ---- three-tier residency lifecycle (DESIGN.md §12) -------------------------
+#: ``last_mig`` at init: the cooldown gate is open at t = 0 and ``t -
+#: last_mig`` never overflows int32
+_TIER_NEVER = -(1 << 30)
+
+
+def tier_init(n_pages: int, n_shards: int, placement: str,
+              device=None) -> dict:
+    """Lifecycle tables: ``home int32[n_pages]`` (seeded from the static
+    placement), ``comp bool`` (True = in the compressed cold tier), ``heat
+    int32`` (decayed access heat), ``last_mig int32`` (step of the last
+    tier transition) and 0-dim int32 counters ``n_migrations`` /
+    ``n_demotions`` / ``n_promotions``."""
+    dev = resolve_device(device)
+    pages = torch.arange(n_pages, dtype=I32, device=dev)
+    zero = lambda: torch.zeros((), dtype=I32, device=dev)
+    return {
+        "home": page_home(pages, n_pages, n_shards, placement),
+        "comp": torch.zeros((n_pages,), dtype=torch.bool, device=dev),
+        "heat": torch.zeros((n_pages,), dtype=I32, device=dev),
+        "last_mig": torch.full((n_pages,), _TIER_NEVER, dtype=I32,
+                               device=dev),
+        "n_migrations": zero(),
+        "n_demotions": zero(),
+        "n_promotions": zero(),
+    }
+
+
+def _tier_scatter_idx(tier: dict, pages: torch.Tensor,
+                      ok: torch.Tensor) -> torch.Tensor:
+    """Scatter index with invalid entries sent to the drop column
+    ``n_pages``."""
+    n_pages = tier["home"].shape[0]
+    return torch.where(ok, pages.clamp(0, n_pages - 1),
+                       torch.full_like(pages, n_pages)).long()
+
+
+def _tier_set(a: torch.Tensor, idx: torch.Tensor, v) -> torch.Tensor:
+    """``a`` with ``a[idx] = v`` (a new tensor); ``idx == len(a)`` drops."""
+    ext = torch.cat([a, a.new_zeros((1,))])
+    v = torch.as_tensor(v, dtype=a.dtype, device=a.device).expand(idx.shape)
+    return ext.index_put_((idx,), v)[:-1]
+
+
+def tier_migrate(tier: dict, pages: torch.Tensor, dests: torch.Tensor,
+                 ok: torch.Tensor, now) -> dict:
+    """Re-home granted migrations and stamp the cooldown clock. Callers
+    deduplicate same-step proposals for one page (lowest ``seq`` wins)."""
+    idx = _tier_scatter_idx(tier, pages, ok)
+    tier = dict(tier)
+    tier["home"] = _tier_set(tier["home"], idx, dests.to(I32))
+    tier["last_mig"] = _tier_set(tier["last_mig"], idx, now)
+    tier["n_migrations"] = tier["n_migrations"] + _i(ok).sum(dtype=I32)
+    return tier
+
+
+def tier_demote(tier: dict, pages: torch.Tensor, ok: torch.Tensor,
+                now) -> dict:
+    """Move cold pages into the compressed tier (metadata; the caller
+    round-trips the bytes through the page codec). ``pages`` are distinct
+    where ``ok``."""
+    idx = _tier_scatter_idx(tier, pages, ok)
+    tier = dict(tier)
+    tier["comp"] = _tier_set(tier["comp"], idx, True)
+    tier["last_mig"] = _tier_set(tier["last_mig"], idx, now)
+    tier["n_demotions"] = tier["n_demotions"] + _i(ok).sum(dtype=I32)
+    return tier
+
+
+def tier_promote(tier: dict, pages: torch.Tensor, ok: torch.Tensor,
+                 comp_pre: torch.Tensor | None = None
+                 ) -> tuple[dict, torch.Tensor]:
+    """Clear the compressed bit on pages whose bytes just moved hot-ward.
+    Promotions count against ``comp_pre``, the start-of-step snapshot of
+    ``tier["comp"]`` (``None``: the current table), so two streams moving
+    one compressed page in a step each count one. Returns ``(tier,
+    n_promoted)``."""
+    if comp_pre is None:
+        comp_pre = tier["comp"]
+    n_pages = tier["home"].shape[0]
+    promoted = ok & comp_pre[pages.clamp(0, n_pages - 1).long()]
+    idx = _tier_scatter_idx(tier, pages, ok)
+    tier = dict(tier)
+    tier["comp"] = _tier_set(tier["comp"], idx, False)
+    n_new = _i(promoted).sum(dtype=I32)
+    tier["n_promotions"] = tier["n_promotions"] + n_new
+    return tier, n_new
+
+
+def tier_heat_decay(tier: dict) -> dict:
+    """One step of heat decay, ``(heat * 3) >> 2`` on int32 (it drains to
+    0, and equals the Python-int form the host mirror uses)."""
+    tier = dict(tier)
+    tier["heat"] = (tier["heat"] * 3) >> 2
+    return tier
+
+
+def tier_touch(tier: dict, pages: torch.Tensor, ok: torch.Tensor,
+               amount: int) -> dict:
+    """Add ``amount`` heat to each touched page (duplicates accumulate)."""
+    idx = _tier_scatter_idx(tier, pages, ok).reshape(-1)
+    heat = tier["heat"]
+    ext = torch.cat([heat, heat.new_zeros((1,))])
+    ext = ext.index_add(0, idx, torch.full(idx.shape, amount, dtype=I32,
+                                           device=heat.device))
+    tier = dict(tier)
+    tier["heat"] = ext[:-1]
+    return tier
+
+
+def tier_stats(tier: dict) -> dict:
+    """Host-side residency summary of the lifecycle tables."""
+    comp = tier["comp"]
+    return {
+        "n_pages": int(comp.shape[0]),
+        "uncompressed": int((~comp).sum()),
+        "compressed": int(comp.sum()),
+        "migrations": int(tier["n_migrations"]),
+        "demotions": int(tier["n_demotions"]),
+        "promotions": int(tier["n_promotions"]),
+    }
 
 
 # ---- state -----------------------------------------------------------------
@@ -626,9 +753,18 @@ def link_grants(ring: dict, now: torch.Tensor, cap) -> torch.Tensor:
 
 
 def link_grants_sharded(ring: dict, now: torch.Tensor, caps: torch.Tensor,
-                        homes: torch.Tensor) -> torch.Tensor:
+                        homes: torch.Tensor,
+                        mig_src: torch.Tensor | None = None,
+                        mig_valid: torch.Tensor | None = None,
+                        mig_seq: torch.Tensor | None = None):
     """Per-shard landing grants: due entries in ascending global ``seq`` up
-    to each home shard's cap. Returns ``bool[S, R]``."""
+    to each home shard's cap. Returns ``bool[S, R]``.
+
+    With ``mig_src`` / ``mig_valid`` / ``mig_seq`` (migration proposals:
+    the page's current home, validity, global proposal order) the third
+    class rides on top and the result is ``(grants, mig_ok)``: proposals
+    take, in ascending ``mig_seq``, what each source NIC has left after
+    its prefetch grants, so demand > prefetch > migration."""
     due = (ring["page"] >= 0) & (ring["ready"] <= now[:, None])
     flat_due = due.reshape(-1)
     flat_seq = ring["seq"].reshape(-1)
@@ -637,7 +773,22 @@ def link_grants_sharded(ring: dict, now: torch.Tensor, caps: torch.Tensor,
     rank = (flat_due[None, :] & same_shard
             & (flat_seq[None, :] < flat_seq[:, None])).sum(1)
     cap_of = caps[flat_home.clamp(0, caps.shape[0] - 1).long()]
-    return (flat_due & (rank < cap_of)).reshape(due.shape)
+    grants = (flat_due & (rank < cap_of)).reshape(due.shape)
+    if mig_valid is None:
+        return grants
+    n_shards = caps.shape[0]
+    pf_on = torch.zeros((n_shards,), dtype=caps.dtype,
+                        device=caps.device).index_add_(
+        0, flat_home.clamp(0, n_shards - 1).long(),
+        grants.reshape(-1).to(caps.dtype))
+    leftover = (caps - pf_on).clamp(min=0)
+    mv = mig_valid.reshape(-1)
+    ms = mig_seq.reshape(-1)
+    mh = mig_src.reshape(-1).clamp(0, n_shards - 1).long()
+    mig_rank = (mv[None, :] & (mh[None, :] == mh[:, None])
+                & (ms[None, :] < ms[:, None])).sum(1)
+    mig_ok = (mv & (mig_rank < leftover[mh])).reshape(mig_valid.shape)
+    return grants, mig_ok
 
 
 def pool_stats(st: dict, ring: dict | None = None) -> dict:

@@ -26,12 +26,17 @@ the continuous path on unfinished requests, a page leak or a
 page-conservation break. ``--shards N`` shards the cold pool over N home
 shards on the flat data plane (``--placement``, ``--far-delay``, a per-NIC
 ``--link-budget``); ``--chaos SPEC.json`` adds the batch path's chaos
-sidecar. The §12 lifecycle flags are ROADMAP queue 1 item 1.
+sidecar. On the continuous path ``--migration`` turns on the §12 page
+lifecycle (hot-ward migration, ``--mig-cooldown``) and ``--compressed-tier
+N`` its compressed cold tier; the report then carries ``residency``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \
       --smoke --device cpu --batch 2 --prompt-len 16 --gen 4 --paged \
       --async-datapath --page-size 4 --shards 4 --placement interleave \
       --far-delay 2 --link-budget 2 --chaos spec.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --synthetic \
+      --device cpu --arrival bursty --paged --async-datapath --shards 4 \
+      --migration --compressed-tier 16
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from repro_torch.models.model import build_model
 from repro_torch.obs.export import (write_chrome_trace, write_jsonl,
                                     write_request_jsonl)
 from repro_torch.obs.metrics import Registry
+from repro_torch.paging.lifecycle import MigrationCfg
 from repro_torch.paging.tiered_kv import normalize_attn_kernel
 from repro_torch.runtime.straggler import StepTimeMonitor
 from repro_torch.serving.batch_driver import serve_batch_tiered
@@ -144,6 +150,26 @@ def build_parser() -> argparse.ArgumentParser:
                          ".requests.jsonl siblings")
     ap.add_argument("--synthetic", action="store_true",
                     help="synthetic executor (hashed K/V, no model)")
+    # -- three-tier page lifecycle (DESIGN.md §12) ---------------------------
+    ap.add_argument("--migration", action="store_true",
+                    help="continuous engine: online hot/cold page migration "
+                         "(DESIGN.md §12). The Leap trend re-homes each "
+                         "stream's upcoming pages toward its shard between "
+                         "steps; re-homing steers budgets/deadlines/NIC "
+                         "accounting only (the data plane is unchanged, so "
+                         "all bit-identity pins keep holding). The report "
+                         "gains a per-tier residency section")
+    ap.add_argument("--compressed-tier", type=int, default=None,
+                    metavar="PAGES",
+                    help="continuous engine: cap the *uncompressed* far "
+                         "tier at PAGES; the coldest pages beyond it are "
+                         "demoted through the lossy int8 page codec (one "
+                         "roundtrip at demote time) and pay a decompress "
+                         "surcharge on promote. Implies --migration")
+    ap.add_argument("--mig-cooldown", type=int, default=16,
+                    help="with --migration: hysteresis window in steps — a "
+                         "page neither re-homes nor demotes again within "
+                         "this many steps of its last tier transition")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
@@ -159,6 +185,11 @@ def main(argv=None) -> dict:
                  "emits the page-lifecycle info arrays)")
     if args.chaos and not args.paged:
         ap.error("--chaos requires --paged")
+    if (args.migration or args.compressed_tier is not None) \
+            and args.arrival == "batch":
+        ap.error("--migration/--compressed-tier need the continuous engine "
+                 "(--arrival constant|bursty|churn): the page lifecycle is "
+                 "driven between engine steps")
     if args.arrival == "batch":
         return _main_batch(args)
     return _main_continuous(args)
@@ -252,6 +283,12 @@ def _main_batch(args, model=None, prompts=None) -> dict:
 
 def _main_continuous(args) -> dict:
     """The continuous-batching engine over the request lifecycle."""
+    migration = None
+    if args.migration or args.compressed_tier is not None:
+        migration = MigrationCfg(
+            cooldown=args.mig_cooldown,
+            compressed=args.compressed_tier is not None,
+            far_capacity=args.compressed_tier)
     scfg = ServeConfig(
         requests=args.requests,
         slots=args.slots if args.slots is not None else args.batch,
@@ -263,7 +300,8 @@ def _main_continuous(args) -> dict:
         placement=args.placement, far_delay=args.far_delay,
         attn_kernel=normalize_attn_kernel(args.attn_kernel),
         arrival=args.arrival, think_time=args.think_time, seed=args.seed,
-        gang=args.gang, pool_pages=args.pool_pages, trace=bool(args.trace))
+        gang=args.gang, pool_pages=args.pool_pages, trace=bool(args.trace),
+        migration=migration)
     executor = (build_executor(None, seed=args.seed, device=args.device)
                 if args.synthetic else
                 ModelExecutor(model_config(args), seed=args.seed,

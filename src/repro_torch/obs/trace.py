@@ -141,10 +141,12 @@ def decode_stream_events(schedules, info, *, n_pages: int,
     ``multi_stream_consume`` / ``sharded_multi_stream_consume``.
     ``n_pages`` / ``n_shards`` / ``placement`` stamp each demand event's
     home shard. Per step: ``land`` / ``defer`` aggregates (the wait
-    phase), each stream's demand event (``hit`` / ``partial`` / ``miss``,
-    page-level), then ``issue`` aggregates; with ``final_stats`` the
-    ``drop`` / ``evict`` run totals follow at ``step = -1``. (The
-    reference's migration kinds come with the §12 lifecycle.)
+    phase), ``migrate`` grants, each stream's demand event (``hit`` /
+    ``partial`` / ``miss``, page-level), the ``promote`` / ``demote`` tier
+    transitions, then ``issue`` aggregates; with ``final_stats`` the
+    ``drop`` / ``evict`` run totals follow at ``step = -1``. The tier
+    kinds come only from a run that carried the §12 lifecycle's info
+    (``info["migrated"]`` and the rest).
     """
     sched = np.asarray(schedules)
     if sched.ndim == 1:
@@ -156,6 +158,11 @@ def decode_stream_events(schedules, info, *, n_pages: int,
     issued = np.asarray(info["issued"]).reshape(S, T)
     landed = np.asarray(info["landed"]).reshape(S, T)
     deferred = np.asarray(info["deferred"]).reshape(S, T)
+    migrated = promoted = demoted = None
+    if "migrated" in info:
+        migrated = np.asarray(info["migrated"]).reshape(S, T)
+        promoted = np.asarray(info["promoted"]).reshape(S, T)
+        demoted = np.asarray(info["demoted"]).reshape(T)
     home = lambda p: home_of_host(p, n_pages, n_shards, placement)
 
     events = []
@@ -168,6 +175,11 @@ def decode_stream_events(schedules, info, *, n_pages: int,
             if deferred[s, t]:
                 events.append(Event("defer", step, s,
                                     count=int(deferred[s, t])))
+        if migrated is not None:
+            for s in range(S):
+                if migrated[s, t]:
+                    events.append(Event("migrate", step, s,
+                                        count=int(migrated[s, t])))
         for s in range(S):
             p = int(sched[s, t])
             if part[s, t]:
@@ -178,6 +190,16 @@ def decode_stream_events(schedules, info, *, n_pages: int,
                                     pref=bool(pref[s, t])))
             else:
                 events.append(Event("miss", step, s, page=p, shard=home(p)))
+        if migrated is not None:
+            for s in range(S):
+                if promoted[s, t]:
+                    events.append(Event("promote", step, s,
+                                        count=int(promoted[s, t])))
+            if demoted[t]:
+                # a pool-wide capacity decision, owned by no stream:
+                # attributed to stream 0, as the reference does
+                events.append(Event("demote", step, 0,
+                                    count=int(demoted[t])))
         for s in range(S):
             if issued[s, t]:
                 events.append(Event("issue", step, s,

@@ -17,9 +17,12 @@ On one GPU the bytes move by plain indexing of the local cold pool (the
 reference's flat plane); placement, budgets and delays shape what lands
 when. The reference's second plane, ``shard_map`` with ``ppermute`` ring
 rotations over a device mesh, has no counterpart yet: a ``mesh`` raises
-(ROADMAP queue 1 item 5), as does the §12 ``migration`` lifecycle (item 1).
-``chaos`` (:class:`repro_torch.fabric.chaos.ChaosSpec`) injects the four
-fault axes into the consume scan.
+(ROADMAP queue 1 item 5). ``chaos``
+(:class:`repro_torch.fabric.chaos.ChaosSpec`) injects the four fault axes
+into the consume scan, and ``migration``
+(:class:`repro_torch.paging.lifecycle.MigrationCfg`) runs the §12 page
+lifecycle in it: hot-ward migration as the third grant class and, with
+``compressed``, the compressed cold tier.
 """
 
 from __future__ import annotations
@@ -32,8 +35,13 @@ import torch
 from repro_torch.core.leap import leap_step_batched
 from repro_torch.core.pool import (NO_PAGE, PLACEMENTS, _tree_map,
                                    link_grants_sharded, page_home,
-                                   pool_invalidate, pool_issue, pool_wait)
+                                   pool_invalidate, pool_issue, pool_wait,
+                                   tier_demote, tier_heat_decay, tier_init,
+                                   tier_migrate, tier_promote, tier_touch)
 from repro_torch.device import cached_arange
+from repro_torch.paging.lifecycle import (propose_migrations, resolve,
+                                          revalidate_proposals,
+                                          select_demotions)
 from repro_torch.paging.prefetch_serving import _payload_checksum, stream_init
 
 I32 = torch.int32
@@ -103,14 +111,6 @@ def check_fabric_topology(n_pages: int, fabric: ShardedPoolCfg,
                          f"n_shards={fabric.n_shards}")
 
 
-def check_no_migration(migration) -> None:
-    """The §12 lifecycle is not ported; ``None`` or a disabled config
-    passes."""
-    if migration is not None and getattr(migration, "enabled", True):
-        raise NotImplementedError(
-            "migration=: the §12 page lifecycle is ROADMAP queue 1 item 1")
-
-
 # --------------------------------------------------------------------------
 # the flat data plane
 # --------------------------------------------------------------------------
@@ -146,8 +146,17 @@ def scatter_hot(hot: dict, data: dict, dst: torch.Tensor,
 # --------------------------------------------------------------------------
 # the consume scan
 # --------------------------------------------------------------------------
+def _per_shard(homes: torch.Tensor, mask: torch.Tensor, G: int
+               ) -> torch.Tensor:
+    """``int32[G]``: how many entries of ``mask`` sit on each (clamped)
+    home shard."""
+    return torch.zeros((G,), dtype=I32, device=homes.device).index_add_(
+        0, homes.reshape(-1).clamp(0, G - 1).long(),
+        mask.reshape(-1).to(I32))
+
+
 def _consume_flat(cold, schedules: torch.Tensor, geom,
-                  fabric: ShardedPoolCfg, chaos=None):
+                  fabric: ShardedPoolCfg, chaos=None, migration=None):
     """Lock-step multi-stream consume over the sharded cold pool (the
     reference's ``_consume_impl`` on the flat plane). Per step:
 
@@ -164,6 +173,19 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
     issues by the elastic grants, re-homes the dead shard's pages for
     scheduling, and updates the Q8 EWMA deadline estimate ``est_q [S, G]``
     from this step's landings (returned as ``info["est_q"]``).
+
+    With ``migration`` (not ``None`` nor disabled) the step also runs the §12
+    lifecycle, in the reference's order: heat decay (after a node death
+    has invalidated and re-homed every page then homed on the dead shard,
+    migrated-in pages included); re-validation of last step's proposals
+    (those toward a dead shard are dropped and count as pollution); the
+    grants with migration as the third class, then ``tier_migrate``, so
+    that everything after reads the post-grant homes; promotion of every
+    compressed page landed or demand-fetched, counted against the
+    start-of-step snapshot; heat on the demands; the ``decompress_delay``
+    surcharge on the issue of a compressed page (on ``true_delay`` too
+    under chaos); demotion of the coldest pages; and next step's
+    proposals.
     """
     schedules = schedules.to(I32)
     S, T = schedules.shape
@@ -177,6 +199,7 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
     shard_ids = cached_arange(G, dev)
     cand_ids = cached_arange(K, dev)
 
+    mig = resolve(migration)
     cz = None
     if chaos is not None:
         from repro_torch.fabric.chaos import (EST_ONE, compile_chaos,
@@ -191,6 +214,17 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
         t_fail = cz["t_fail"]
         dead = tab(cz["dead_pages"])
         est_q = tab(est_init(S, G, fabric.near_delay, fabric.far_delay))
+    if mig is not None:
+        tier = tier_init(n_pages, G, fabric.placement, device=dev)
+        M = mig.mig_per_stream
+        zs = lambda dt: torch.zeros((S, M), dtype=dt, device=dev)
+        pend = (zs(I32), zs(I32), zs(torch.bool), zs(I32))
+        if cz is not None and t_fail is not None:
+            from repro_torch.fabric.chaos import rehome_shard
+            dead_g = int(chaos.node_loss[0])
+            rehome_vec = torch.tensor(
+                [rehome_shard(p, dead_g, dead_g, G) for p in range(n_pages)],
+                dtype=I32, device=dev)
 
     state = (stream_init(geom, cold.dtype, n_streams=S, device=cold.device)
              if torch.is_tensor(cold) else
@@ -198,12 +232,32 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
     d_prev = torch.zeros((G,), dtype=I32, device=dev)
     cols = {k: [] for k in ("sums", "hit", "pref_hit", "partial_hit",
                             "fetched", "issued", "landed", "deferred",
-                            "shard_d", "link_i", "link_def")}
+                            "shard_d", "link_i", "link_def", "migrated",
+                            "promoted", "demoted", "mig_on", "pf_on")}
     for t in range(T):
         pages = schedules[:, t]
         meta, ring, hot = state["pool_meta"], state["ring"], state["hot"]
         now = ring["now"]
-        if cz is None:
+        if mig is not None:
+            if cz is not None and t_fail is not None and t == t_fail:
+                # node death re-homes the current table (migrated-in pages
+                # included) and invalidates every page homed on the dead
+                # shard, in page order as the reference's masked sweep
+                kill = tier["home"] == dead_g
+                dead_now = kill.nonzero()[:, 0].to(I32)
+                dead_now = dead_now[None].expand(S, dead_now.shape[0])
+                meta, ring = pool_invalidate(
+                    meta, ring, dead_now,
+                    torch.ones_like(dead_now, dtype=torch.bool))
+                tier = dict(tier)
+                tier["home"] = torch.where(kill, rehome_vec, tier["home"])
+            tier = tier_heat_decay(tier)
+            comp_pre = tier["comp"]                # start-of-step snapshot
+            # reads the current binding of ``tier``: the grant phase below
+            # rebinds it, so demand accounting and issue delays see this
+            # step's migrations
+            _home = lambda x: tier["home"][x.clamp(0, n_pages - 1).long()]
+        elif cz is None:
             _home = lambda x: page_home(x, n_pages, G, fabric.placement)
         else:
             # scheduling home map, re-homed from the death step on; the
@@ -220,7 +274,38 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
                                                              dtype=torch.bool))
 
         # --- per-shard landing grants (leftover NIC budget, global seq) ---
-        if cz is not None:
+        if mig is not None:
+            mp, md, mv0, msq = pend
+            mv, msrc = revalidate_proposals(mp, md, mv0, msq, tier, t, mig)
+            if cz is not None and t_fail is not None:
+                # carried proposals toward the dead shard: dropped, and
+                # counted as pollution of the proposing stream
+                dead_hit = mv & (md == dead_g) & (t >= t_fail)
+                meta = dict(meta)
+                meta["n_pollution"] = (meta["n_pollution"]
+                                       + dead_hit.sum(1, dtype=I32))
+                mv = mv & ~dead_hit
+            if cz is not None:
+                caps = (bud_t[t] - d_prev).clamp(min=0)
+            elif budget is not None:
+                caps = (budget - d_prev).clamp(min=0)
+            else:
+                caps = None
+            if caps is None:
+                allowed = torch.ones(ring["page"].shape, dtype=torch.bool,
+                                     device=dev)
+                mig_ok = mv
+                pf_on_g = torch.zeros((G,), dtype=I32, device=dev)
+            else:
+                homes_ring = _home(ring["page"])
+                allowed, mig_ok = link_grants_sharded(
+                    ring, now, caps, homes_ring, msrc, mv, msq)
+                pf_on_g = _per_shard(homes_ring, allowed, G)
+            tier = tier_migrate(tier, mp.reshape(-1), md.reshape(-1),
+                                mig_ok.reshape(-1), t)
+            migrated_s = mig_ok.sum(1, dtype=I32)
+            mig_on_g = _per_shard(msrc, mig_ok, G)
+        elif cz is not None:
             caps = (bud_t[t] - d_prev).clamp(min=0)
             allowed = link_grants_sharded(ring, now, caps, _home(ring["page"]))
         elif budget is None:
@@ -250,6 +335,25 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
         homes_d = _home(pages)
         d_t = ((homes_d[:, None] == shard_ids[None, :])
                & winfo["fetched"][:, None]).sum(0, dtype=I32)
+        # --- promote on bytes moved + demand heat ---------------------------
+        if mig is not None:
+            promoted_s = torch.zeros((S,), dtype=I32, device=dev)
+            if mig.compressed:
+                # a landing or demand fetch of a compressed page promotes
+                # it, counted per stream against the start-of-step snapshot
+                lp = winfo["landed_pages"]
+                prom_land = winfo["landed"] & comp_pre[
+                    lp.clamp(0, n_pages - 1).long()]
+                prom_dem = winfo["fetched"] & comp_pre[
+                    pages.clamp(0, n_pages - 1).long()]
+                promoted_s = (prom_land.sum(1, dtype=I32)
+                              + prom_dem.to(I32))
+                tier, _ = tier_promote(
+                    tier, torch.cat([lp.reshape(-1), pages]),
+                    torch.cat([winfo["landed"].reshape(-1),
+                               winfo["fetched"]]), comp_pre)
+            tier = tier_touch(tier, pages, (pages >= 0) & (pages < n_pages),
+                              mig.heat_access)
         # --- controllers + globally ordered, distance-delayed issue ------
         pref_feedback = winfo["prefetched_hit"] | winfo["partial_hit"]
         new_leap, cands, valid = leap_step_batched(
@@ -261,17 +365,25 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
         base = torch.where(homes_c == homes_s[:, None],
                            torch.full_like(homes_c, fabric.near_delay),
                            torch.full_like(homes_c, fabric.far_delay))
+        if mig is not None and mig.compressed:
+            # promote-from-compressed pays the codec on top of the wire
+            # (dilation multiplies the wire only)
+            base_sur = base + tier["comp"][
+                cands.clamp(0, n_pages - 1).long()].to(I32) \
+                * mig.decompress_delay
+        else:
+            base_sur = base
         issued0 = meta["n_prefetch_issued"]
         if cz is None:
-            meta, ring = pool_issue(meta, ring, cands, val, now, base,
+            meta, ring = pool_issue(meta, ring, cands, val, now, base_sur,
                                     seq=seq)
         else:
-            true_delay = base * dil_t[t][homes_c.long()]
+            true_delay = base * dil_t[t][homes_c.long()] + (base_sur - base)
             if chaos.adaptive_deadline:
                 eg = torch.gather(est_q, 1, homes_c.long())
                 deadline = ((eg + EST_ONE // 2) // EST_ONE).clamp(min=1)
             else:
-                deadline = base
+                deadline = base_sur
             # elastic grant: cap the stream's unconsumed-resident +
             # in-flight footprint; issues beyond the cap are drops
             res_unused = ((meta["slot_page"] >= 0) & meta["slot_prefetched"]
@@ -285,6 +397,22 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
         ring["now"] = now + 1
         issued_s = meta["n_prefetch_issued"] - issued0
         deferred_s = meta["n_deferred"] - deferred0
+        # --- demote the coldest + propose next step's migrations ------------
+        if mig is not None:
+            demoted_t = torch.zeros((), dtype=I32, device=dev)
+            if mig.compressed:
+                dpages, dok = select_demotions(tier, t, mig)
+                tier = tier_demote(tier, dpages, dok, t)
+                demoted_t = dok.sum(dtype=I32)
+            mp2, md2, mv2, msq2 = propose_migrations(
+                new_leap, pages, homes_s, tier, t, n_pages, K, mig)
+            if cz is not None and t_fail is not None and t >= t_fail:
+                mv2 = mv2 & (md2 != dead_g)
+            pend = (mp2, md2, mv2, msq2)
+            for k, v in (("migrated", migrated_s), ("promoted", promoted_s),
+                         ("demoted", demoted_t), ("mig_on", mig_on_g),
+                         ("pf_on", pf_on_g)):
+                cols[k].append(v)
         # --- data plane: replay the copy plan (landings, then demand) ----
         src = torch.cat([winfo["landed_pages"],
                          torch.where(winfo["fetched"], pages,
@@ -320,6 +448,13 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
             "link_deferred": torch.stack(cols["link_def"])}
     if cz is not None:
         info["est_q"] = est_q                                  # [S, G]
+    if mig is not None:
+        info["migrated"] = per("migrated")                     # [S, T]
+        info["promoted"] = per("promoted")                     # [S, T]
+        info["demoted"] = torch.stack(cols["demoted"])         # [T]
+        info["mig_on_shard"] = torch.stack(cols["mig_on"])     # [T, G]
+        info["pf_on_shard"] = torch.stack(cols["pf_on"])       # [T, G]
+        state = dict(state, tier=tier)
     return state, per("sums"), info
 
 
@@ -333,12 +468,16 @@ def sharded_multi_stream_consume(cold, schedules: torch.Tensor, geom,
     Returns ``(state, data_sums [S, T], info)`` as the reference: the
     stream ``info`` columns ``[S, T]``, the per-NIC
     ``shard_demand_fetches [T, n_shards]``, the link totals ``[T]`` and,
-    with ``chaos``, the final ``est_q int32[S, n_shards]``. ``mesh`` and
-    ``migration`` raise (not ported).
+    with ``chaos``, the final ``est_q int32[S, n_shards]``. ``migration``
+    (a :class:`repro_torch.paging.lifecycle.MigrationCfg`) adds the
+    lifecycle's ``info`` keys ``migrated`` / ``promoted`` ``[S, T]``,
+    ``demoted [T]``, ``mig_on_shard`` / ``pf_on_shard [T, n_shards]`` (per-NIC
+    migration and prefetch grants) and the final tables as
+    ``state["tier"]``; ``None`` or ``enabled=False`` is the exact two-tier
+    scan. ``mesh`` raises (not ported).
     """
     if geom.ring_size <= 0:
         raise ValueError("sharded consume needs the async issue/wait ring "
                          "(geom.ring_size > 0)")
     check_fabric_topology(geom.n_pages, fabric, mesh)
-    check_no_migration(migration)
-    return _consume_flat(cold, schedules, geom, fabric, chaos)
+    return _consume_flat(cold, schedules, geom, fabric, chaos, migration)

@@ -2,9 +2,10 @@
 
 Counterpart of ``src/repro/paging/tiered_kv.py``: on the single-link path
 (``fabric=None``) and on a sharded cold pool's flat data plane (``fabric``
-of any shard count: per-NIC budgets, near/far deadlines). A ``mesh`` (the
-reference's ``shard_map`` plane, ROADMAP queue 1 item 5) and the §12
-lifecycle maps (item 1) raise here. The state is a dict of ``{"leap",
+of any shard count: per-NIC budgets, near/far deadlines), with or without
+the §12 lifecycle's tables (``home_map`` / ``comp_map``, which steer the
+scheduling only). A ``mesh`` (the reference's ``shard_map`` plane, ROADMAP
+queue 1 item 5) raises here. The state is a dict of ``{"leap",
 "pool_meta", "ring", "hot"}`` whose leaves carry a leading stream
 dimension, where the reference vmaps. The chunked sweep is a Python loop
 over chunk steps; each step runs the metadata transactions for all streams
@@ -151,9 +152,13 @@ def _chunk_sync(leap: dict, meta: dict, pages: torch.Tensor, geom: TieredKV):
 def _chunk_async(leap: dict, meta: dict, ring: dict, pages: torch.Tensor,
                  land_ok: torch.Tensor, seq: torch.Tensor,
                  home_s: torch.Tensor, geom: TieredKV,
-                 fabric: ShardedPoolCfg):
+                 fabric: ShardedPoolCfg, home_tab=None, comp_tab=None,
+                 mig_delay: int = 0):
     """One async chunk step for all streams: wait (land + serve the
-    chunk's demands), controller, issue."""
+    chunk's demands), controller, issue. ``home_tab`` (``int32[n_pages]``)
+    replaces the placement formula in the near/far deadlines; ``comp_tab``
+    (``bool[n_pages]``) adds ``mig_delay`` steps to a compressed
+    candidate's."""
     now = ring["now"]
     valid_d = pages >= 0
     deferred0 = meta["n_deferred"]
@@ -164,11 +169,15 @@ def _chunk_async(leap: dict, meta: dict, ring: dict, pages: torch.Tensor,
     fb = winfo["prefetched_hit"] | winfo["partial_hit"]
     leap, cands, cvalid = _leap_chunk(leap, pages, fb, valid_d, geom)
     cval = cvalid & (cands >= 0) & (cands < geom.n_pages)
-    homes_c = page_home(cands, geom.n_pages, fabric.n_shards,
-                        fabric.placement)
+    c_safe = cands.clamp(0, geom.n_pages - 1).long()
+    homes_c = (page_home(cands, geom.n_pages, fabric.n_shards,
+                         fabric.placement) if home_tab is None
+               else home_tab[c_safe])
     delay = torch.where(homes_c == home_s[:, None],
                         torch.full_like(homes_c, fabric.near_delay),
                         torch.full_like(homes_c, fabric.far_delay))
+    if comp_tab is not None:
+        delay = delay + comp_tab[c_safe].to(I32) * mig_delay
     meta, ring = pool_issue(meta, ring, cands, cval, now, delay, seq=seq)
     ring = dict(ring)
     ring["now"] = now + 1
@@ -178,15 +187,23 @@ def _chunk_async(leap: dict, meta: dict, ring: dict, pages: torch.Tensor,
 
 
 def _sweep_fn(state: dict, cold: dict, sched: torch.Tensor, geom: TieredKV,
-              async_datapath: bool, fabric: ShardedPoolCfg):
-    """Lock-step sweep over ``sched [n_chunks, S, chunk]``."""
+              async_datapath: bool, fabric: ShardedPoolCfg,
+              lifecycle: dict | None = None, mig_delay: int = 0):
+    """Lock-step sweep over ``sched [n_chunks, S, chunk]``. ``lifecycle``
+    (``{"home", "comp"}`` tables) steers the per-NIC caps, the deadlines
+    and the demand accounting; the bytes still move from the static
+    placement."""
     n_chunks, S, C = sched.shape
     G = fabric.n_shards
     dev = sched.device
     stream_ids = torch.arange(S, dtype=I32, device=dev)
     homes_s = stream_homes(S, G, dev)
     shard_ids = torch.arange(G, dtype=I32, device=dev)
-    homes = lambda p: page_home(p, geom.n_pages, G, fabric.placement)
+    home_tab = None if lifecycle is None else lifecycle["home"]
+    comp_tab = None if lifecycle is None else lifecycle.get("comp")
+    homes = ((lambda p: page_home(p, geom.n_pages, G, fabric.placement))
+             if home_tab is None else
+             (lambda p: home_tab[p.clamp(0, geom.n_pages - 1).long()]))
     d_prev = torch.zeros((G,), dtype=I32, device=dev)
     cols = {k: [] for k in ("hit", "pref_hit", "partial_hit", "fetched",
                             "issued", "landed", "deferred",
@@ -207,7 +224,8 @@ def _sweep_fn(state: dict, cold: dict, sched: torch.Tensor, geom: TieredKV,
             ar = cached_arange(geom.pw_max, dev)
             seq = (now * S + stream_ids)[:, None] * geom.pw_max + ar[None, :]
             leap, meta, ring, slots, info, issued, deferred = _chunk_async(
-                leap, meta, ring, pages, ok, seq, homes_s, geom, fabric)
+                leap, meta, ring, pages, ok, seq, homes_s, geom, fabric,
+                home_tab, comp_tab, mig_delay)
             # copy plan: landings first, then demand fetches
             src = torch.cat([info["landed_pages"],
                              torch.where(info["fetched"], pages,
@@ -267,11 +285,14 @@ def tiered_sweep(state: dict, cold: dict, page_rows: torch.Tensor,
     becomes per NIC and prefetch deadlines near / far by home shard
     (stream s lives on shard ``s % n_shards``); ``link_budget`` is then
     ignored. ``cold`` stays in page-id order: the bytes move by the same
-    gather launches as on one shard."""
-    if home_map is not None or comp_map is not None or decompress_delay:
-        raise NotImplementedError(
-            "the tier lifecycle maps (home_map / comp_map) are the §12 "
-            "lifecycle, ROADMAP queue 1 item 1")
+    gather launches as on one shard.
+
+    ``home_map`` (``int32[n_pages]``, the §12 lifecycle's time-varying
+    homes, e.g. :meth:`PageLifecycle.home_map`) replaces the placement
+    formula in the per-NIC caps, the near/far deadlines and the per-NIC
+    demand accounting; ``comp_map`` (``bool[n_pages]``) adds
+    ``decompress_delay`` chunk steps to the deadline of a prefetch of a
+    compressed page. Both ``None`` is the exact two-tier sweep."""
     S, npps = page_rows.shape
     if geom.n_slots < tiered_min_slots(npps, geom):
         raise ValueError(
@@ -294,7 +315,19 @@ def tiered_sweep(state: dict, cold: dict, page_rows: torch.Tensor,
     sched = torch.cat([rows, torch.full((S, pad), NO_PAGE, dtype=I32,
                                         device=rows.device)], 1)
     sched = sched.reshape(S, n_chunks, C).transpose(0, 1)
-    return _sweep_fn(state, cold, sched, geom, async_datapath, fabric)
+    lifecycle = None
+    if home_map is not None or comp_map is not None:
+        dev = rows.device
+        lifecycle = {"home": (
+            page_home(torch.arange(geom.n_pages, dtype=I32, device=dev),
+                      geom.n_pages, fabric.n_shards, fabric.placement)
+            if home_map is None else
+            torch.as_tensor(home_map, device=dev).to(I32))}
+        if comp_map is not None:
+            lifecycle["comp"] = torch.as_tensor(comp_map,
+                                                device=dev).to(torch.bool)
+    return _sweep_fn(state, cold, sched, geom, async_datapath, fabric,
+                     lifecycle, int(decompress_delay))
 
 
 def tiered_slot_table_local(state: dict, page_rows: torch.Tensor
@@ -367,13 +400,16 @@ def tiered_decode_step(state: dict, cold: dict, q: torch.Tensor,
                        geom: TieredKV, *, async_datapath: bool = False,
                        link_budget: int | None = None,
                        fabric: ShardedPoolCfg | None = None, mesh=None,
-                       attn_kernel="ref"):
+                       attn_kernel="ref", home_map=None, comp_map=None,
+                       decompress_delay: int = 0):
     """Sweep, then attend over the hot tier; returns
     ``(state, out, info, all_resident)``."""
     state, info = tiered_sweep(state, cold, page_rows, geom,
                                async_datapath=async_datapath,
                                link_budget=link_budget, fabric=fabric,
-                               mesh=mesh)
+                               mesh=mesh, home_map=home_map,
+                               comp_map=comp_map,
+                               decompress_delay=decompress_delay)
     out, ok = tiered_attention(q, state, page_rows, lengths,
                                attn_kernel=attn_kernel)
     return state, out, info, ok

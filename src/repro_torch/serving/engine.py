@@ -14,7 +14,16 @@ per-step query comes from a ``torch.Generator`` seeded with ``1000 + t``.
 The engine updates its cold pool and tiered state in place between steps.
 ``shards > 1`` shards the cold pool (``placement``, ``far_delay``, a
 per-NIC ``link_budget``) on the flat data plane; a ``mesh`` (ROADMAP
-queue 1 item 5) and the §12 migration lifecycle (item 1) raise here.
+queue 1 item 5) raises here.
+
+``migration`` (a :class:`repro_torch.paging.lifecycle.MigrationCfg`) runs
+the §12 page lifecycle: a host-side :class:`PageLifecycle` between steps
+re-homes each decoding stream's upcoming pages toward its shard along its
+Leap trend (scheduling only: budgets, deadlines, per-NIC accounting) and,
+with ``compressed``, demotes the coldest pages, whose layer-0 cold bytes
+go once through the int8 page codec (their stale hot copies are
+invalidated, so the flat and tiered sides read the same post-roundtrip
+bytes and the pin holds).
 """
 
 from __future__ import annotations
@@ -32,14 +41,15 @@ from repro_torch.obs.trace import (Event, RequestPhase, decode_sweep_events,
                                    events_to_counts, summary_events)
 from repro_torch.paging.kv_cache import (PageAllocator, init_paged_kv,
                                          paged_decode_attention)
+from repro_torch.paging.lifecycle import PageLifecycle, resolve
 from repro_torch.paging.sharded_pool import (ShardedPoolCfg,
-                                             check_fabric_topology,
-                                             check_no_migration)
+                                             check_fabric_topology)
 from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
                                           tiered_attention, tiered_init,
                                           tiered_invalidate, tiered_min_slots,
                                           tiered_reset_stream, tiered_stats,
                                           tiered_sweep)
+from repro_torch.runtime.compression import roundtrip_pages
 
 from .request import DECODE, PREFILL, Request
 from .scheduler import AdmissionQueue, SlotScheduler
@@ -52,7 +62,8 @@ PINNED_COUNTERS = ("hits", "misses", "partial_hits", "prefetch_hits",
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Static configuration of one continuous-batching serving run (the
-    reference's fields; ``migration`` is not ported)."""
+    reference's fields). ``migration`` is a ``MigrationCfg``, or ``None``
+    / ``enabled=False`` for the exact two-tier engine."""
 
     requests: int = 8
     slots: int = 4
@@ -110,7 +121,6 @@ class ServingEngine:
     def __init__(self, config: ServeConfig, executor, device=None,
                  mesh=None):
         c = config
-        check_no_migration(c.migration)
         self.cfg = config
         self.ex = executor
         self.device = resolve_device(device)
@@ -164,6 +174,9 @@ class ServingEngine:
         self.shard_hist: list[np.ndarray] = []
         self.counter_base = [dict.fromkeys(PINNED_COUNTERS, 0)
                              for _ in range(c.slots)]
+        mig = resolve(c.migration)
+        self.lifecycle = None if mig is None else PageLifecycle(
+            n_pages, max(c.shards, 1), c.placement, mig, self.device)
         self.equiv_ok = True
         self.first_bad_step: int | None = None
         self.occupancy_peak = 0.0
@@ -197,6 +210,8 @@ class ServingEngine:
             lengths[req.slot] = req.prefilled + req.decoded - 1
         rows_t = torch.from_numpy(rows).to(self.device)
         lengths_t = torch.from_numpy(lengths).to(self.device)
+        sweep_kw = {} if self.lifecycle is None else \
+            self._drive_lifecycle(rows, decoding)
         cold = {"k": self.pool["k"][0], "v": self.pool["v"][0]}
         gen = torch.Generator(device=self.device).manual_seed(1000 + t)
         q = torch.randn((S, 1, self.hq, self.ex.head_dim), generator=gen,
@@ -205,7 +220,8 @@ class ServingEngine:
             self.tstate, info = tiered_sweep(
                 self.tstate, cold, rows_t, self.geom,
                 async_datapath=self.cfg.async_datapath,
-                link_budget=self.cfg.link_budget, fabric=self.fabric)
+                link_budget=self.cfg.link_budget, fabric=self.fabric,
+                **sweep_kw)
             sp.sync = info
         mode = normalize_attn_kernel(self.cfg.attn_kernel)
         with self.reg.span("tiered_attention") as sp:
@@ -228,6 +244,49 @@ class ServingEngine:
             self.link_hist.append(info_np["link_demand_fetches"])
             self.shard_hist.append(info_np["shard_demand_fetches"])
         self._chunk_clock += self._n_chunks
+
+    def _drive_lifecycle(self, rows: np.ndarray,
+                         decoding: list[Request]) -> dict:
+        """One step of the §12 lifecycle on the host, before the sweep:
+        decay and heat, hot-ward migration along each decoding stream's
+        trend (with more than one shard), then demotion, whose victims'
+        layer-0 cold bytes go through the page codec and whose stale hot
+        copies are invalidated. Returns the sweep's lifecycle arguments."""
+        lc = self.lifecycle
+        lc.begin_step()
+        lc.touch(rows[rows >= 0])
+        G = max(self.cfg.shards, 1)
+        if G > 1:
+            leap = self.tstate["leap"]
+            trend = leap["trend"].cpu().numpy()
+            has = leap["has_trend"].cpu().numpy()
+            for req in decoding:
+                s = req.slot
+                if not has[s] or not trend[s]:
+                    continue
+                frontier = int(req.pages[-1])
+                cands = [frontier + int(trend[s])
+                         * (self.geom.pw_max + lc.cfg.lead + j)
+                         for j in range(lc.cfg.mig_per_stream)]
+                moved = lc.migrate_toward(cands, s % G)
+                if moved and self.events is not None:
+                    self.events.append(Event("migrate", self._chunk_clock,
+                                             s, count=moved))
+        victims = lc.demote_victims()
+        if victims:
+            vict = torch.tensor(victims, dtype=torch.int32,
+                                device=self.device)
+            _roundtrip_pages(self.pool, vict.long())
+            self.tstate = tiered_invalidate(
+                self.tstate, vict[None].expand(self.cfg.slots, len(victims)))
+            if self.events is not None:
+                self.events.append(Event("demote", self._chunk_clock, 0,
+                                         count=len(victims)))
+        kw = {"home_map": lc.home_map()}
+        if lc.cfg.compressed:
+            kw["comp_map"] = lc.comp_map()
+            kw["decompress_delay"] = lc.cfg.decompress_delay
+        return kw
 
     # -- one engine step -----------------------------------------------------
     def _step(self, t: int) -> None:
@@ -265,6 +324,14 @@ class ServingEngine:
                 decoding.append(req)
                 if done:
                     finishers.append(req)
+        if written and self.lifecycle is not None:
+            # freshly written bytes are uncompressed: clear the bit (a
+            # recycled page would otherwise pay the decompress surcharge on
+            # stale state)
+            n_prom = self.lifecycle.promote([p for _, p in written])
+            if n_prom and self.events is not None:
+                self.events.append(Event("promote", self._chunk_clock, 0,
+                                         count=n_prom))
         if written:
             # the reference pads this list with -1 to a fixed width; -1
             # entries are no-ops, so only the written pages are passed
@@ -366,7 +433,16 @@ class ServingEngine:
         if c.shards > 1:
             out["shards"] = c.shards
             out["placement"] = c.placement
+        if self.lifecycle is not None:
+            out["residency"] = self.lifecycle.report()
         return out
+
+
+def _roundtrip_pages(pool: dict, pages: torch.Tensor) -> None:
+    """Demotion's lossy int8 round trip of layer 0's ``pages`` (one scale a
+    page), in place."""
+    for buf in (pool["k"], pool["v"]):
+        buf[0, pages] = roundtrip_pages(buf[0, pages])
 
 
 def serve_continuous(config: ServeConfig, executor=None, arch: str = None,

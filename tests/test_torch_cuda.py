@@ -630,3 +630,139 @@ def test_cuda_four_shard_sweep_equals_the_cpu_sweep(cuda, async_dp,
         q, {k: v[None] for k, v in colds["cuda"].items()}, 0, rows.to(cuda),
         lengths, use_kernel=True)
     assert bool(ok) and torch.equal(out, flat)
+
+
+@pytest.mark.cuda
+def test_cuda_consume_with_migration_equals_the_cpu(cuda):
+    """The consume scan with the §12 lifecycle and its compressed tier
+    (four shards, block, link budget 2): on the card and on the CPU the
+    same integers, ``info``, tier tables and hot bytes."""
+    from repro_torch.paging import prefetch_serving as tps
+    from repro_torch.paging import sharded_pool as tsp
+    from repro_torch.paging.lifecycle import MigrationCfg
+
+    n_pages, T = 64, 48
+    t = torch.arange(T)
+    sched = torch.stack([(16 + 2 * t) % n_pages,
+                         (40 + 3 * t) % n_pages]).to(torch.int32)
+    g = torch.Generator().manual_seed(5)
+    cold = {k: torch.randn((n_pages, 16, 2, 8), generator=g).to(
+        torch.bfloat16) for k in ("k", "v")}
+    geom = tps.PrefetchedStream(n_pages=n_pages, n_slots=n_pages,
+                                page_elems=16 * 2 * 8, ring_size=8, pw_max=4)
+    fabric = tsp.ShardedPoolCfg(n_shards=4, placement="block",
+                                link_budget=2, near_delay=1, far_delay=3)
+    mig = MigrationCfg(mig_per_stream=2, lead=1, cooldown=8, compressed=True,
+                       far_capacity=n_pages // 2, demote_per_step=2)
+    out = {d: tsp.sharded_multi_stream_consume(
+        {k: v.to(d) for k, v in cold.items()}, sched.to(d), geom, fabric,
+        migration=mig) for d in ("cpu", "cuda")}
+    (cst, csums, cinfo), (gst, gsums, ginfo) = out["cpu"], out["cuda"]
+    assert torch.equal(csums, gsums.cpu())
+    assert set(cinfo) == set(ginfo)
+    for k in cinfo:
+        assert torch.equal(cinfo[k], ginfo[k].cpu()), k
+    for group in ("leap", "pool_meta", "ring", "hot", "tier"):
+        for k, v in cst[group].items():
+            assert torch.equal(v, gst[group][k].cpu()), (group, k)
+    assert int(cinfo["migrated"].sum()) > 0
+    assert int(cinfo["demoted"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_dp", [False, True])
+def test_cuda_lifecycle_sweep_equals_the_cpu_sweep(cuda, async_dp):
+    """``tiered_sweep`` with ``home_map`` / ``comp_map`` over four shards,
+    three sweeps with a demotion (the page codec on the cold bytes, then an
+    invalidation) between them: the card (sync: ``gather_pages`` and the
+    hot-slot kernel; async: their async twins) and the CPU give the same
+    integers and hot bytes; the hot-tier attention equals the flat pool's
+    bitwise on the card."""
+    from repro_torch.kernels import _build
+    from repro_torch.paging import tiered_kv as tt
+    from repro_torch.paging.kv_cache import paged_decode_attention
+    from repro_torch.paging.sharded_pool import ShardedPoolCfg
+    from repro_torch.runtime.compression import roundtrip_pages
+
+    S, npps, ps, hkv, dh = 4, 12, 16, 2, 64
+    n_pages = S * npps
+    geom = tt.TieredKV(n_pages, tt.tiered_min_slots(
+        npps, tt.TieredKV(n_pages, 1, ps, hkv, dh)), ps, hkv, dh)
+    fabric = ShardedPoolCfg(n_shards=4, placement="interleave",
+                            link_budget=2, far_delay=3)
+    g = torch.Generator().manual_seed(4)
+    cold = {k: torch.randn((n_pages, ps, hkv, dh), generator=g).to(
+        torch.bfloat16) for k in ("k", "v")}
+    rows = (torch.arange(S)[:, None] * npps
+            + (torch.arange(npps)[None] * 5) % npps).to(torch.int32)
+    rows[2, 9:] = -1
+    home = torch.randint(0, 4, (n_pages,), generator=g, dtype=torch.int32)
+    comp = torch.rand((n_pages,), generator=g) < 0.5
+    states = {d: tt.tiered_init(geom, S, torch.bfloat16, d)
+              for d in ("cpu", "cuda")}
+    colds = {"cpu": cold, "cuda": {k: v.to(cuda) for k, v in cold.items()}}
+    gather = "gather_pages_async" if async_dp else "gather_pages"
+    n0 = _build.counts().get(gather, 0)
+    for sweep in range(3):
+        if sweep:                       # demote two pages between sweeps
+            vict = rows[sweep, 2 * sweep:2 * sweep + 2].long()
+            comp[vict] = True
+            for d in states:
+                for k in ("k", "v"):
+                    colds[d][k][vict.to(d)] = roundtrip_pages(
+                        colds[d][k][vict.to(d)])
+                states[d] = tt.tiered_invalidate(
+                    states[d], vict.to(torch.int32)[None].expand(S, 2).to(d))
+        infos = {}
+        for d in states:
+            states[d], infos[d] = tt.tiered_sweep(
+                states[d], colds[d], rows.to(d), geom,
+                async_datapath=async_dp, fabric=fabric,
+                home_map=home.to(d), comp_map=comp.to(d),
+                decompress_delay=2)
+        for k in infos["cpu"]:
+            assert torch.equal(infos["cpu"][k], infos["cuda"][k].cpu()), k
+        for group in ("leap", "pool_meta", "ring", "hot"):
+            for k, v in states["cpu"][group].items():
+                assert torch.equal(v, states["cuda"][group][k].cpu()), \
+                    (sweep, group, k)
+    for k in ("k", "v"):
+        assert torch.equal(colds["cpu"][k], colds["cuda"][k].cpu())
+    assert _build.counts()[gather] > n0
+    lengths = torch.tensor([180, 100, 144, 7], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((S, 1, 8, dh), generator=g).to(torch.bfloat16).to(cuda)
+    mode = "fused_async" if async_dp else "fused"
+    name = ("paged_attention_hot_slots_async" if async_dp
+            else "paged_attention_hot_slots")
+    a0 = _build.counts().get(name, 0)
+    out, ok = tt.tiered_attention(q, states["cuda"], rows.to(cuda), lengths,
+                                  attn_kernel=mode)
+    flat = paged_decode_attention(
+        q, {k: v[None] for k, v in colds["cuda"].items()}, 0, rows.to(cuda),
+        lengths, use_kernel=True)
+    assert bool(ok) and torch.equal(out, flat)
+    assert _build.counts()[name] == a0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_page_codec_equals_the_cpu(cuda, dtype):
+    """The page codec on the card: bitwise the CPU's, page by page and
+    batched, at the serve's page shape and at magnitudes from 1e-3 to
+    1e3."""
+    from repro_torch.runtime import compression as codec
+
+    g = torch.Generator().manual_seed(6)
+    pages = (torch.randn((64, 16, 2, 128), generator=g)
+             * torch.logspace(-3, 3, 64)[:, None, None, None]).to(dtype)
+    pages[3] = 0
+    want = codec.roundtrip_pages(pages)
+    got = codec.roundtrip_pages(pages.to(cuda))
+    assert torch.equal(want, got.cpu())
+    for i in (0, 3, 17, 63):
+        assert torch.equal(codec.page_roundtrip(pages[i].to(cuda)).cpu(),
+                           want[i])
+        q, s = codec.compress_page(pages[i].to(cuda))
+        wq, ws = codec.compress_page(pages[i])
+        assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)

@@ -207,15 +207,21 @@ def test_engine_synthetic_bf16_gqa_drains_clean():
 
 
 def test_unported_engine_options_raise():
-    """The §12 lifecycle and a mesh raise; ``shards > 1`` builds the
-    sharded engine on the flat data plane, its pool rounded up to split
-    over the shards (``tests/test_torch_sharded.py`` holds its runs
-    against the reference)."""
+    """A mesh raises; the §12 lifecycle builds its host mirror (a disabled
+    config none, ``tests/test_torch_serving_lifecycle.py`` holds its runs
+    against the reference); ``shards > 1`` builds the sharded engine on
+    the flat data plane, its pool rounded up to split over the shards
+    (``tests/test_torch_sharded.py`` holds its runs against the
+    reference)."""
+    from repro_torch.paging.lifecycle import MigrationCfg
     ex = SyntheticExecutor(2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         ServingEngine(ServeConfig(shards=2), ex, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ServingEngine(ServeConfig(migration=object()), ex, device="cpu")
+    eng = ServingEngine(ServeConfig(shards=2, migration=MigrationCfg(
+        compressed=True, far_capacity=4)), ex, device="cpu")
+    assert eng.lifecycle.report()["per_shard"] == [eng.n_pages // 2] * 2
+    assert ServingEngine(ServeConfig(migration=MigrationCfg(enabled=False)),
+                         ex, device="cpu").lifecycle is None
     eng = ServingEngine(ServeConfig(shards=3), ex, device="cpu")
     assert eng.n_pages % 3 == 0 and eng.fabric.n_shards == 3
 

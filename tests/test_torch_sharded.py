@@ -75,9 +75,18 @@ def test_placement_and_topology(G, placement):
     geom = tps.PrefetchedStream(n_pages=N_PAGES, n_slots=N_SLOTS,
                                 page_elems=3, ring_size=4)
     sched = torch.zeros((S, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tsp.sharded_multi_stream_consume(torch.zeros(N_PAGES, 3), sched,
-                                         geom, tf, migration=object())
+    # the §12 lifecycle runs (tests/test_torch_migration.py holds it
+    # against the reference); a disabled config is the two-tier scan
+    from repro_torch.paging.lifecycle import MigrationCfg
+    pool = torch.arange(N_PAGES * 3, dtype=torch.float32).reshape(N_PAGES, 3)
+    st, _, info = tsp.sharded_multi_stream_consume(
+        pool, sched, geom, tf, migration=MigrationCfg())
+    assert info["mig_on_shard"].shape == (2, G) and "tier" in st
+    off = tsp.sharded_multi_stream_consume(pool, sched, geom, tf)
+    dis = tsp.sharded_multi_stream_consume(
+        pool, sched, geom, tf, migration=MigrationCfg(enabled=False))
+    assert set(off[2]) == set(dis[2]) and "tier" not in dis[0]
+    assert all(torch.equal(off[2][k], dis[2][k]) for k in off[2])
     with pytest.raises(ValueError, match="ring"):
         tsp.sharded_multi_stream_consume(
             torch.zeros(N_PAGES, 3), sched,

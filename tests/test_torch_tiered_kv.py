@@ -178,10 +178,11 @@ def test_bf16_hand_over_round_trips_bytes():
 
 
 def test_undersized_hot_pool_and_unported_options_raise():
-    """An undersized hot tier, the §12 lifecycle maps and a mesh raise; a
-    fabric of more than one shard sweeps (``tests/test_torch_sharded.py``
-    holds it against the reference) unless the pool does not split over
-    its shards."""
+    """An undersized hot tier and a mesh raise; the §12 lifecycle maps at
+    their t = 0 values (the static homes, nothing compressed) reduce the
+    sweep bitwise to the two-tier sweep; a fabric of more than one shard
+    sweeps (``tests/test_torch_sharded.py`` holds it against the
+    reference) unless the pool does not split over its shards."""
     _, tg = _geoms()
     small = tt.TieredKV(N_PAGES, 4, PS, HKV, DH)
     cold = tree_from_numpy(_inputs()[0], CPU)
@@ -190,8 +191,21 @@ def test_undersized_hot_pool_and_unported_options_raise():
         tt.tiered_sweep(tt.tiered_init(small, B, torch.float32, CPU), cold,
                         rows, small)
     st = tt.tiered_init(tg, B, torch.float32, CPU)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tt.tiered_sweep(st, cold, rows, tg, home_map=torch.zeros(N_PAGES))
+    from repro_torch.paging.lifecycle import static_home_map
+    for async_dp in (False, True):
+        two, i2 = tt.tiered_sweep(tt.tiered_init(tg, B, torch.float32, CPU),
+                                  cold, rows, tg, async_datapath=async_dp)
+        mig, im = tt.tiered_sweep(
+            tt.tiered_init(tg, B, torch.float32, CPU), cold, rows, tg,
+            async_datapath=async_dp,
+            home_map=static_home_map(N_PAGES, 1, "interleave", CPU),
+            comp_map=torch.zeros(N_PAGES, dtype=torch.bool),
+            decompress_delay=2)
+        assert set(i2) == set(im)
+        assert all(torch.equal(i2[k], im[k]) for k in i2)
+        for group in two:
+            for k in two[group]:
+                assert torch.equal(two[group][k], mig[group][k]), k
     from repro_torch.paging.sharded_pool import ShardedPoolCfg
     with pytest.raises(NotImplementedError, match="item 5"):
         tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=2),
