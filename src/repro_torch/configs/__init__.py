@@ -37,7 +37,8 @@ ALIASES = {
 }
 
 #: configs ported so far
-PORTED = ("qwen2_5_3b", "jamba_v01_52b")
+PORTED = ("qwen2_5_3b", "jamba_v01_52b", "phi35_moe_42b",
+          "llama4_maverick_400b")
 
 
 def canonical(arch: str) -> str:
@@ -51,7 +52,7 @@ def _module(arch: str):
     if name not in PORTED:
         raise NotImplementedError(
             f"config {name!r} is ported in a later slice (ROADMAP queue 1 "
-            f"items 2-3); ported so far: {PORTED}")
+            f"item 3); ported so far: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

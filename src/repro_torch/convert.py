@@ -89,7 +89,8 @@ def model_params_from_jax(params_np: dict, cfg, device=None):
       ``mix.w_out [di, d]``, and ``mix.dt_bias [di]``, ``mix.a_log
       [di, N]``, ``mix.d_skip [di]`` in float32;
     * MoE feed-forwards: ``ff.wr [d, E]``, ``ff.wg`` / ``ff.wu [E, d, F]``,
-      ``ff.wd [E, F, d]``;
+      ``ff.wd [E, F, d]``, and the shared expert's MLP ``ff.shared.wg`` /
+      ``ff.shared.wu [d, F*n_shared]``, ``ff.shared.wd [F*n_shared, d]``;
     * ``norm1`` / ``norm2`` / ``final_norm``: ``scale [d]`` (and ``bias``
       for layernorm).
 

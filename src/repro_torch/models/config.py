@@ -2,7 +2,8 @@
 
 A copy of ``repro.models.config`` (framework-neutral); the port keeps its
 own so that it imports nothing of the reference. The port's model code
-builds the dense family only so far (``repro_torch.models.transformer``).
+builds the dense, MoE and hybrid families so far
+(``repro_torch.models.transformer``).
 
 The config is deliberately flat: family-specific knobs default to "off" so a
 dense transformer is the zero case. ``layer_kinds()`` expands the interleave

@@ -25,12 +25,20 @@ import torch.nn.functional as F
 def dense_init_(w: torch.Tensor, gen: torch.Generator,
                 scale: float | None = None) -> torch.Tensor:
     """Truncated normal on [-2, 2] at fan-in scale ``1/sqrt(d_in)`` for a
-    ``[d_in, d_out]`` weight, drawn in float32 and cast to ``w``'s dtype."""
+    ``[d_in, d_out]`` weight, drawn in float32 and cast to ``w``'s dtype.
+
+    A stacked ``[E, d_in, d_out]`` weight (the MoE experts; pass
+    ``scale``) is drawn one ``[d_in, d_out]`` slice at a time through one
+    float32 buffer of that size, so the temporary stays a slice's bytes
+    (0.17 GB for llama4-maverick's experts, against 21.5 GB for the
+    whole stack)."""
     scale = 1.0 / math.sqrt(w.shape[0]) if scale is None else scale
-    f = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-    torch.nn.init.trunc_normal_(f, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    f = torch.empty(w.shape[-2:], dtype=torch.float32, device=w.device)
     with torch.no_grad():
-        w.copy_(f * scale)
+        for part in (w,) if w.dim() < 3 else w:
+            torch.nn.init.trunc_normal_(f, 0.0, 1.0, -2.0, 2.0,
+                                        generator=gen)
+            part.copy_(f.mul_(scale))
     return w
 
 

@@ -4,7 +4,8 @@ seed.
 Counterpart of ``repro.models.model.build_model``. The reference returns a
 bundle of pure functions over a parameter tree; the port returns the
 :class:`~repro_torch.models.transformer.Transformer` module, whose methods
-are those functions. Dense, MoE-free configs only so far.
+are those functions. The dense, MoE and hybrid families are built
+(:mod:`.transformer` lists what still raises).
 """
 
 from __future__ import annotations

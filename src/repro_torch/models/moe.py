@@ -13,14 +13,19 @@ prefill and decode pass and which makes them route a token the same way.
 The top-k picks the larger probability first and, on a tie, the lower
 expert id, as ``jax.lax.top_k`` does (a stable descending sort; ``torch.
 topk`` does not promise an order on ties). Parameters: ``wr [d, E]``,
-``wg`` / ``wu [E, d, F]``, ``wd [E, F, d]``. A shared expert
-(``n_shared_experts``) is not ported: the hybrid family has none.
+``wg`` / ``wu [E, d, F]``, ``wd [E, F, d]``, and with
+``n_shared_experts`` a ``shared`` SwiGLU MLP of width ``F *
+n_shared_experts`` (``wg`` / ``wu [d, F*n]``, ``wd [F*n, d]``) that every
+token passes through beside its routed experts, as the reference's.
+:func:`apply_moe_dense_ref` is the reference's per-token oracle.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .layers import apply_mlp
 
 
 def router(x: torch.Tensor, wr: torch.Tensor, top_k: int):
@@ -66,14 +71,24 @@ def dispatch_plan(ids: torch.Tensor, n_experts: int, C: int):
     return order, rank, keep, dest
 
 
-def apply_moe(p: dict, x: torch.Tensor, top_k: int,
-              capacity_factor: float = 1.25, act: str = "silu",
-              dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,D] -> (y [B,S,D], aux loss), one dispatch group per row."""
+def _check_act(act: str) -> None:
     if act != "silu":
         raise NotImplementedError(f"MoE act={act!r} is ported with the "
                                   "families that use it (ROADMAP queue 1 "
                                   "item 3)")
+
+
+def _shared(p: dict, x: torch.Tensor) -> torch.Tensor:
+    s = p["shared"]
+    return apply_mlp(s["wg"], s["wu"], s["wd"], x)
+
+
+def apply_moe(p: dict, x: torch.Tensor, top_k: int,
+              capacity_factor: float = 1.25, act: str = "silu",
+              dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> (y [B,S,D], aux loss), one dispatch group per row;
+    plus the shared expert's MLP of ``x`` where ``p`` has one."""
+    _check_act(act)
     B, S, D = x.shape
     E = p["wr"].shape[1]
     w, ids, aux = router(x.reshape(B * S, D), p["wr"], top_k)
@@ -96,4 +111,31 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     y_tok[rows, order] = y_sorted                            # token order
     y_tok = y_tok.reshape(B, S, top_k, D)
     wk = w.reshape(B, S, top_k, 1).to(y_tok.dtype)
-    return torch.sum(y_tok * wk, dim=2), aux
+    y = torch.sum(y_tok * wk, dim=2)
+    if "shared" in p:
+        y = y + _shared(p, x)
+    return y, aux
+
+
+def apply_moe_dense_ref(p: dict, x: torch.Tensor, top_k: int,
+                        act: str = "silu") -> torch.Tensor:
+    """Oracle: each token's top-k experts applied through per-token weight
+    gathers, no capacity and no drops, plus the shared expert. O(T*k*D*F)
+    weight bytes gathered: for small test configs only; no serve path
+    calls it."""
+    _check_act(act)
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    w, ids, _ = router(xf, p["wr"], top_k)
+
+    def per_k(j):
+        e = ids[:, j]
+        wg, wu, wd = p["wg"][e], p["wu"][e], p["wd"][e]
+        h = F.silu(torch.einsum("td,tdf->tf", xf, wg)) \
+            * torch.einsum("td,tdf->tf", xf, wu)
+        return torch.einsum("tf,tfd->td", h, wd) * w[:, j, None].to(x.dtype)
+
+    y = sum(per_k(j) for j in range(top_k))
+    if "shared" in p:
+        y = y + _shared(p, xf)
+    return y.reshape(B, S, D)

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense and hybrid families: one block module per layer.
+"""Decoder-only LM, dense, MoE and hybrid families: one block module per
+layer.
 
 Counterpart of ``repro.models.transformer``. The reference stacks the
 parameters of each position of the layer pattern ``[n_periods, ...]`` and
@@ -21,13 +22,17 @@ copy per token. ``pos`` is a host int, so no step waits on the device to
 learn it.
 
 What is built: the dense family's qwen2-style configs (attention layers
-with a SwiGLU MLP, RMSNorm, RoPE) and the hybrid family of jamba (Mamba or
+with a SwiGLU MLP, RMSNorm, RoPE); the MoE family (attention layers whose
+feed-forward is an MLP or a MoE as ``cfg.layer_kinds()`` interleaves them
+by ``moe_every`` / ``moe_offset``, with the shared expert of
+``n_shared_experts``: phi3.5-moe has a MoE on every layer, llama4-maverick
+on every second, odd, layer); and the hybrid family of jamba (Mamba or
 attention mixers, MLP or MoE feed-forwards, ``rope_type="none"``).
 Prefill attention goes through the flash-attention kernel on the card;
-Mamba prefill through the selective-scan kernel. The MoE family's configs
-(ROADMAP queue 1 item 2), xLSTM layers, the encoder-decoder family,
-M-RoPE, LayerNorm, GeGLU, sliding windows and logit soft-capping raise
-``NotImplementedError`` (items 2-3).
+Mamba prefill through the selective-scan kernel. xLSTM layers, the
+encoder-decoder family, M-RoPE, LayerNorm, GeGLU (and a GELU MoE),
+sliding windows and logit soft-capping raise ``NotImplementedError``
+(ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -69,12 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {what} is ported in a later slice (ROADMAP "
                 "queue 1 item 3)")
     for kind in cfg.layer_kinds():
-        if kind["ff"] == "moe" and (cfg.family != "hybrid"
-                                    or cfg.n_shared_experts):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers outside the hybrid family (the MoE "
-                "family's configs, shared experts, expert paging) are "
-                "ported in a later slice (ROADMAP queue 1 item 2)")
         if kind["mix"] not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind['mix']} layers are ported in a later "
@@ -141,13 +140,16 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``wg``/``wu [d, d_ff]``, ``wd [d_ff, d]``."""
+    """SwiGLU: ``wg``/``wu [d, ff]``, ``wd [ff, d]``; ``ff`` is
+    ``cfg.d_ff`` unless given (a MoE's shared expert)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 ff: int | None = None):
         super().__init__()
-        self.wg = _param((cfg.d_model, cfg.d_ff), dtype, device)
-        self.wu = _param((cfg.d_model, cfg.d_ff), dtype, device)
-        self.wd = _param((cfg.d_ff, cfg.d_model), dtype, device)
+        ff = cfg.d_ff if ff is None else ff
+        self.wg = _param((cfg.d_model, ff), dtype, device)
+        self.wu = _param((cfg.d_model, ff), dtype, device)
+        self.wd = _param((ff, cfg.d_model), dtype, device)
 
     def init_params(self, gen: torch.Generator) -> None:
         for w in (self.wg, self.wu, self.wd):
@@ -180,7 +182,8 @@ class Mamba(nn.Module):
 
 class MoE(nn.Module):
     """Router ``wr [d, E]`` and experts ``wg`` / ``wu [E, d, F]``,
-    ``wd [E, F, d]`` (:mod:`.moe`)."""
+    ``wd [E, F, d]`` (:mod:`.moe`); with ``n_shared_experts`` a ``shared``
+    :class:`MLP` of width ``F * n_shared_experts``."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -191,18 +194,28 @@ class MoE(nn.Module):
         self.wg = _param((E, d, F), dtype, device)
         self.wu = _param((E, d, F), dtype, device)
         self.wd = _param((E, F, d), dtype, device)
+        self.shared = (MLP(cfg, dtype, device, F * cfg.n_shared_experts)
+                       if cfg.n_shared_experts else None)
 
     def init_params(self, gen: torch.Generator) -> None:
         dense_init_(self.wr, gen)
         for w in (self.wg, self.wu, self.wd):        # fan-in: dim 1
             dense_init_(w, gen, scale=w.shape[1] ** -0.5)
+        if self.shared is not None:
+            self.shared.init_params(gen)
+
+    def p(self) -> dict:
+        p = {"wr": self.wr, "wg": self.wg, "wu": self.wu, "wd": self.wd}
+        if self.shared is not None:
+            s = self.shared
+            p["shared"] = {"wg": s.wg, "wu": s.wu, "wd": s.wd}
+        return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Inference routing: dropless, as the reference's prefill and
         decode."""
-        p = {"wr": self.wr, "wg": self.wg, "wu": self.wu, "wd": self.wd}
-        return apply_moe(p, x, self.top_k, self.capacity_factor, self.act,
-                         dropless=True)[0]
+        return apply_moe(self.p(), x, self.top_k, self.capacity_factor,
+                         self.act, dropless=True)[0]
 
 
 class Block(nn.Module):

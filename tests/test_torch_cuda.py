@@ -25,6 +25,7 @@ SHAPES = [  # B/S, Hq, Hkv, dh, page, npps: GQA, MHA, MQA, serving path
     (64, 64, 8, 128, 16, 16),    # B * Hkv fills the card: one split
     (2, 8, 2, 64, 16, 37),       # npps off a multiple of P: P 2, 19
     (2, 32, 2, 64, 16, 9),       # G = 16, two blocks of heads: P 2, 5
+    (4, 40, 8, 128, 16, 9),      # llama4's G = 5: 3 idle rows of 8
 ]
 # head dims whose bf16 rows are 8, 12 and 6 bytes: the async kernel's
 # 8-byte, 4-byte and element-wise copy paths
@@ -239,6 +240,39 @@ def test_cuda_attention_route_counter_and_split_record(cuda, dtype, dh, ps,
         assert pk._build.counts()[name] == n0 + 1
         assert pk.paged_attention_mma_launches.n == t0 + int(tensor_cores)
         assert pk.last_launch[name] == split
+
+
+@pytest.mark.cuda
+def test_cuda_attention_group_of_five_on_the_tensor_cores(cuda):
+    """llama4-maverick's decode shape (40 query heads over 8 KV heads of
+    128, bf16, page 16): its group of 5 leaves 3 idle rows in the
+    tensor-core route's block of 8. All three kernels take that route,
+    match the plain version, and hot-slot == flat == async bitwise."""
+    from repro_torch.kernels.paged_attention import kernel as pk
+    g = torch.Generator(device=cuda).manual_seed(10)
+    S, Hq, Hkv, dh, ps, npps = 4, 40, 8, 128, 16, 9
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(
+        torch.bfloat16)
+    n_slots = npps + 2
+    q = rnd(S, 1, Hq, dh)
+    kh, vh = rnd(S, n_slots, ps, Hkv, dh), rnd(S, n_slots, ps, Hkv, dh)
+    st = torch.stack([torch.randperm(n_slots, generator=g, device=cuda)[:npps]
+                      for _ in range(S)]).to(torch.int32)
+    st[1, 2] = -1
+    ln = torch.tensor([npps * ps, 5, npps * ps - 7, 70], dtype=torch.int32,
+                      device=cuda)
+    base = torch.arange(S, dtype=torch.int32, device=cuda)[:, None] * n_slots
+    gt = torch.where(st >= 0, st + base, torch.full_like(st, -1))
+    t0 = pk.paged_attention_mma_launches.n
+    flat = ka.paged_attention(q, kh.reshape(-1, ps, Hkv, dh),
+                              vh.reshape(-1, ps, Hkv, dh), gt, ln)
+    hot = ka.paged_attention_hot_slots(q, kh, vh, st, ln)
+    got = ka.paged_attention_hot_slots(q, kh, vh, st, ln, async_copy=True)
+    want = ka.paged_attention_hot_slots(q, kh, vh, st, ln, use_kernel=False)
+    torch.cuda.synchronize()
+    assert pk.paged_attention_mma_launches.n == t0 + 3
+    assert _bf16_ulp_ratio(hot, want) <= 1.0
+    assert torch.equal(hot, flat) and torch.equal(got, hot)
 
 
 @pytest.mark.cuda
@@ -465,6 +499,7 @@ FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (4, 1024, 1024, 32, 8, 128, True, 0, 0), # jamba's prefill widths
     (2, 150, 150, 8, 2, 120, True, 0, 0),    # dh 120, off the 64-row tile
     (1, 70, 200, 4, 2, 96, True, 32, 130),   # dh 96, window + offset
+    (2, 200, 200, 40, 8, 128, True, 0, 0),   # llama4's heads, G = 5
 ]
 
 

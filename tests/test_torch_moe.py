@@ -5,7 +5,9 @@ included: the lower id first, as ``lax.top_k``), and per group the stable
 expert sort, the capacity slot of each assignment and the drop mask, which
 the reference computes inside ``_dispatch_group`` (its lines are repeated
 here in jnp as the oracle). Outputs and the aux loss are held at 1e-5
-(f32; the einsums sum in different orders), with and without drops.
+(f32; the einsums sum in different orders), with and without drops, with
+and without the shared expert; so is the per-token oracle
+``apply_moe_dense_ref``.
 """
 
 import jax.numpy as jnp
@@ -101,3 +103,61 @@ def test_decode_group_of_one_token_routes_as_prefill():
     one, _ = tmoe.apply_moe(p, x[:, 4:5], k, dropless=True)
     np.testing.assert_allclose(one[:, 0].numpy(), full[:, 4].numpy(),
                                atol=TOL)
+
+
+def _shared_params(d, F, E, n_shared, seed):
+    p = _params(d, F, E, seed)
+    if n_shared:
+        rng = np.random.default_rng(seed + 100)
+        w = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(
+            np.float32)
+        p["shared"] = {"wg": w(d, F * n_shared), "wu": w(d, F * n_shared),
+                       "wd": w(F * n_shared, d)}
+    return p
+
+
+def _tree(p, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in p.items()}
+
+
+@pytest.mark.parametrize("n_shared", [0, 1])
+@pytest.mark.parametrize("k", [1, 2])
+def test_shared_expert_and_dense_oracle_match_jax(n_shared, k):
+    """With and without the shared expert, top-1 and top-2: the routing
+    ids exact; ``apply_moe`` (dropless and with drops) and the per-token
+    oracle ``apply_moe_dense_ref`` within 1e-5 of the reference's; and,
+    dropless, the dispatch equal to the oracle."""
+    B, S, d, F, E = 2, 9, 16, 24, 4
+    p = _shared_params(d, F, E, n_shared, seed=10 * n_shared + k)
+    x = np.random.default_rng(k).standard_normal((B, S, d)).astype(
+        np.float32)
+    jp, tp = _tree(p, jnp.asarray), _tree(p, torch.from_numpy)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    _, jids, _ = jmoe._router(jx.reshape(B * S, d), jp["wr"], k)
+    _, tids, _ = tmoe.router(tx.reshape(B * S, d), tp["wr"], k)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    want = jmoe.apply_moe_dense_ref(jp, jx, k)
+    got = tmoe.apply_moe_dense_ref(tp, tx, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    for cf, dropless in ((1.25, True), (0.5, False)):
+        jy, _ = jmoe.apply_moe(jp, jx, k, cf, dropless=dropless)
+        ty, _ = tmoe.apply_moe(tp, tx, k, cf, dropless=dropless)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL,
+                                   rtol=TOL)
+        if dropless:
+            np.testing.assert_allclose(ty.numpy(), got.numpy(), atol=TOL,
+                                       rtol=TOL)
+    if n_shared:                  # the shared branch is really taken
+        bare = {n: v for n, v in tp.items() if n != "shared"}
+        assert not torch.allclose(tmoe.apply_moe_dense_ref(bare, tx, k), got)
+
+
+def test_gelu_moe_still_raises_naming_the_roadmap():
+    p = {n: torch.from_numpy(v) for n, v in _params(8, 8, 4, 0).items()}
+    x = torch.zeros(1, 2, 8)
+    for fn in (lambda: tmoe.apply_moe(p, x, 2, act="gelu"),
+               lambda: tmoe.apply_moe_dense_ref(p, x, 2, act="gelu")):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            fn()
