@@ -1,11 +1,9 @@
-"""Architecture registry of the port: the reference's names, the configs
-ported so far.
+"""Architecture registry of the port: the reference's names and all ten
+of its configs.
 
 ``get_config(arch)`` returns the published dims; ``get_smoke_config`` a
 family-preserving reduction (same layer pattern, tiny widths) for CPU
-tests. The names and aliases are the reference's (``repro.configs``); an
-architecture whose config module is not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that ports it. The
+tests. The names and aliases are the reference's (``repro.configs``). The
 reference's input-shape specs lower through XLA and have no counterpart
 here.
 """
@@ -36,9 +34,8 @@ ALIASES = {
     "xlstm-350m": "xlstm_350m",
 }
 
-#: configs ported so far
-PORTED = ("qwen2_5_3b", "jamba_v01_52b", "phi35_moe_42b",
-          "llama4_maverick_400b")
+#: configs ported (all of ``ARCHS``)
+PORTED = tuple(ARCHS)
 
 
 def canonical(arch: str) -> str:
@@ -49,10 +46,6 @@ def _module(arch: str):
     name = canonical(arch)
     if name not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is ported in a later slice (ROADMAP queue 1 "
-            f"item 3); ported so far: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

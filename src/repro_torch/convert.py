@@ -69,7 +69,9 @@ def tiered_state_from_numpy(state_np: dict, device=None) -> dict:
 
 def model_params_from_jax(params_np: dict, cfg, device=None):
     """The reference's ``init_params`` tree (leaves numpy) as the port's
-    :class:`~repro_torch.models.transformer.Transformer` of ``cfg``.
+    model of ``cfg``: a :class:`~repro_torch.models.transformer.Transformer`,
+    or an :class:`~repro_torch.models.encdec.EncDec` for the ``encdec``
+    family.
 
     The reference stacks the parameters of each position ``p`` of the
     layer pattern over periods: ``params["period"][p]`` has leaves
@@ -91,8 +93,20 @@ def model_params_from_jax(params_np: dict, cfg, device=None):
     * MoE feed-forwards: ``ff.wr [d, E]``, ``ff.wg`` / ``ff.wu [E, d, F]``,
       ``ff.wd [E, F, d]``, and the shared expert's MLP ``ff.shared.wg`` /
       ``ff.shared.wu [d, F*n_shared]``, ``ff.shared.wd [F*n_shared, d]``;
+    * mLSTM mixers: ``mix.w_up [d, 2*di]``, ``mix.w_q`` / ``mix.w_k`` /
+      ``mix.w_v [H, dh, dh]``, ``mix.w_if [di, 2H]``, ``mix.w_o [di, di]``,
+      ``mix.w_dn [di, d]``, ``mix.conv [K, di]``, and ``mix.f_bias`` /
+      ``mix.i_bias [H]``, ``mix.skip [di]`` in float32;
+    * sLSTM mixers: ``mix.w [d, 4d]``, ``mix.r [4, H, dh, dh]``,
+      ``mix.w_dn [d, d]``, and ``mix.bias [4d]`` in float32;
     * ``norm1`` / ``norm2`` / ``final_norm``: ``scale [d]`` (and ``bias``
       for layernorm).
+
+    The encoder-decoder's tree is not period-stacked: ``enc`` and ``dec``
+    have leaves ``[L, ...]``, layer ``l`` going to ``enc.{l}`` / ``dec.{l}``
+    (``norm1``, ``attn`` / ``self``, ``normx``, ``cross``, ``norm2``,
+    ``ff``), beside ``in_proj [d, d]``, ``enc_norm``, ``embed``,
+    ``final_norm`` and ``lm_head``.
 
     bf16 leaves cross through :func:`array_from_numpy`. Every parameter of
     the module must be filled, and every leaf used, or this raises.
@@ -125,8 +139,16 @@ def model_params_from_jax(params_np: dict, cfg, device=None):
     walk("final_norm.", params_np["final_norm"])
     if "lm_head" in params_np:
         put("lm_head_w", params_np["lm_head"])
-    for layer in range(cfg.n_layers):
-        walk(f"blocks.{layer}.", params_np["period"][layer % P], layer // P)
+    if cfg.family == "encdec":
+        put("in_proj", params_np["in_proj"])
+        walk("enc_norm.", params_np["enc_norm"])
+        for name, n in (("enc", cfg.n_enc_layers), ("dec", cfg.n_layers)):
+            for layer in range(n):
+                walk(f"{name}.{layer}.", params_np[name], layer)
+    else:
+        for layer in range(cfg.n_layers):
+            walk(f"blocks.{layer}.", params_np["period"][layer % P],
+                 layer // P)
     missing = sorted(set(dict(model.named_parameters())) - filled)
     if missing:
         raise ValueError(f"parameters not in the reference tree: {missing}")

@@ -26,7 +26,9 @@ Two routes, chosen explicitly by :func:`tensor_core_route`:
   bf16 inputs the first route does not take, such as ``dh`` in (128, 256])
   — 32 query rows a block on float32 tiles in shared memory.
 
-``flash_attention_launches`` counts every launch of either route.
+``flash_attention_launches`` counts every launch of either route;
+``flash_attention_cuda_core_bf16_launches`` the bf16 launches of the
+CUDA-core route (stablelm-12b's dh 160).
 
 Bound on the H100: operations — ``4 * dh`` flops per unmasked (query,
 key) pair per query head, about 0.035 ms at the bf16 tensor-core peak for
@@ -41,6 +43,8 @@ from .. import _build
 
 flash_attention_launches = _build.counter("flash_attention")
 flash_attention_wgmma_launches = _build.counter("flash_attention_wgmma")
+flash_attention_cuda_core_bf16_launches = _build.counter(
+    "flash_attention_cuda_core_bf16")
 
 _ARGS = ([_build.VP] * 4 + [_build.I32] * 7 + [_build.I64] * 12
          + [_build.I32] * 2 + [_build.F32, _build.I32, _build.VP])
@@ -118,7 +122,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         name = "flash_attention_launch"
         fn = _build.bind("flash_attention", name, _ARGS)
         code = _build.launch(fn, q.get_device(), *args, _DTYPES[q.dtype])
-        counted = (flash_attention_launches,)
+        counted = (flash_attention_launches,) + (
+            (flash_attention_cuda_core_bf16_launches,)
+            if q.dtype == torch.bfloat16 else ())
     _build.check(code, name)
     for c in counted:
         c.n += 1

@@ -211,13 +211,22 @@ def _prompts(seed: int, B: int, prompt_len: int, vocab: int) -> torch.Tensor:
     return torch.randint(0, vocab, (B, prompt_len), generator=g)
 
 
-def _main_batch(args, model=None, prompts=None) -> dict:
+def _frames(seed: int, B: int, prompt_len: int, d: int) -> torch.Tensor:
+    """An encoder-decoder's stub frames ``float32 [B, prompt_len, d]``,
+    standard normals from a CPU generator seeded ``seed + 1`` (the
+    reference draws them from the prompts' key)."""
+    g = torch.Generator().manual_seed(seed + 1)
+    return torch.randn((B, prompt_len, d), generator=g)
+
+
+def _main_batch(args, model=None, prompts=None, frames=None) -> dict:
     """The lock-step path: batched prefill + greedy decode (+ the tiered
     replay). ``model`` (a built model, for example of a depth-cut config)
-    and ``prompts`` (``[batch, prompt_len]``) may be handed in; by default
-    the model of ``--arch`` is built with parameters from ``--seed`` and
-    the prompts come from ``--seed + 1``. The result carries the
-    reference's keys plus the emitted ``tokens``."""
+    and ``prompts`` (``[batch, prompt_len]``) may be handed in, and for an
+    encoder-decoder its ``frames`` (``[batch, prompt_len, d_model]``); by
+    default the model of ``--arch`` is built with parameters from
+    ``--seed`` and the prompts and frames come from ``--seed + 1``. The
+    result carries the reference's keys plus the emitted ``tokens``."""
     dev = resolve_device(args.device)
     if model is None:
         model = build_model(model_config(args), device=dev, seed=args.seed)
@@ -233,9 +242,17 @@ def _main_batch(args, model=None, prompts=None) -> dict:
         raise ValueError(f"prompts of shape {tuple(prompts.shape)}, "
                          f"expected ({B}, {prompt_len})")
 
+    extra = {}
+    if cfg.family == "encdec":
+        if frames is None:
+            frames = _frames(args.seed, B, prompt_len, cfg.d_model)
+        if not torch.is_tensor(frames):
+            frames = torch.from_numpy(np.array(frames, np.float32))
+        extra["frames"] = frames.to(device=model.device, dtype=model.dtype)
+
     reg = Registry()
     with reg.span("prefill") as sp:
-        logits, state = model.prefill(prompts, max_len)
+        logits, state = model.prefill(prompts, max_len, **extra)
         tok = torch.argmax(logits, -1)
         sp.sync = tok
     t_prefill = reg.histogram("prefill").samples[-1]

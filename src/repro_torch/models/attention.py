@@ -1,17 +1,20 @@
-"""GQA attention of the model: one-token decode and causal full-sequence.
+"""GQA attention of the model: one-token decode and full-sequence prefill
+(self- or cross-attention).
 
-Counterpart of ``repro.models.attention``. Both share its contract:
+Counterpart of ``repro.models.attention``. All share its contract:
 ``q [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` with ``Hq = G*Hkv``; softmax
 statistics in float32; outputs in the input dtype. Its TPU layout flags
-(``attn_bf16``, ``decode_tsh``) stay off, as in its default; sliding
-windows and logit soft-capping wait for the configs that use them (ROADMAP
-queue 1 item 3).
+(``attn_bf16``, ``decode_tsh``) stay off, as in its default. Logit
+soft-capping is not ported (no config sets it, and the flash kernel has
+no soft-cap; ROADMAP queue 1 item 6).
 
 * :func:`decode_attention` — one query position against a ``[B,T,...]``
   cache, masked to ``length``; plain PyTorch, as the reference's is jnp.
-* :func:`causal_attention` — the whole prompt at once for ``prefill``: the
-  reference's ``blocked_attention``, whose docstring names the Pallas
-  flash kernel as its twin. Here it is that kernel's port
+* :func:`blocked_attention` — the whole prompt at once for ``prefill``
+  (causal, or a sliding window, or unmasked in an encoder and in the
+  encoder-decoder's prefill cross-attention, whose ``Sq`` and ``Sk`` may
+  differ): the reference's ``blocked_attention``, whose docstring names
+  the Pallas flash kernel as its twin. Here it is that kernel's port
   (:func:`repro_torch.kernels.flash_attention.flash_attention`): the CUDA
   kernel for CUDA tensors, the exact-softmax plain version on the CPU.
 """
@@ -33,10 +36,13 @@ def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, S, n_kv, Hq // n_kv, dh)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``."""
-    return flash_attention(q, k, v, causal=True)
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``: causal
+    (``window`` > 0: each query sees its last ``window`` keys) or, with
+    ``causal=False``, bidirectional."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

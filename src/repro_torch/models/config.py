@@ -2,8 +2,7 @@
 
 A copy of ``repro.models.config`` (framework-neutral); the port keeps its
 own so that it imports nothing of the reference. The port's model code
-builds the dense, MoE and hybrid families so far
-(``repro_torch.models.transformer``).
+builds every family (``repro_torch.models.transformer``, ``.encdec``).
 
 The config is deliberately flat: family-specific knobs default to "off" so a
 dense transformer is the zero case. ``layer_kinds()`` expands the interleave

@@ -1,14 +1,15 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, and the parameter inits.
+"""Shared layers: RMSNorm / LayerNorm, RoPE / M-RoPE, the SwiGLU / GeGLU
+MLP, and the parameter inits.
 
-Counterpart of ``repro.models.layers``, for what the dense family the port
-builds uses. Weights keep the reference's orientation, ``[d_in, d_out]``
-applied as ``x @ w``, so a converted weight is the reference's array as it
-is. Compute dtype discipline as there: matmuls run in the parameter dtype;
+Counterpart of ``repro.models.layers``, for what the serving paths use.
+Weights keep the reference's orientation, ``[d_in, d_out]`` applied as
+``x @ w``, so a converted weight is the reference's array as it is.
+Compute dtype discipline as there: matmuls run in the parameter dtype;
 norms and rotary compute in float32 and cast back. The inits draw from an
 explicit ``torch.Generator``; they follow the reference's distributions,
-not its ``jax.random`` bits. LayerNorm, GeGLU, M-RoPE and the chunked
-cross-entropy wait for the slices that need them (ROADMAP queue 1 items
-3-4).
+not its ``jax.random`` bits. GELU is the tanh form, as ``jax.nn.gelu``'s
+default (``approximate=True``). The chunked cross-entropy is a training
+entry point (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -51,34 +52,68 @@ def embed_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return w
 
 
-def norm_init_(scale: torch.Tensor) -> torch.Tensor:
+def norm_init_(scale: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Scale 1 and (LayerNorm) bias 0."""
     with torch.no_grad():
+        if bias is not None:
+            bias.zero_()
         return scale.fill_(1.0)
 
 
 # --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------
-def apply_norm(scale: torch.Tensor, x: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in float32, cast back to ``x``'s dtype."""
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """RMSNorm, or LayerNorm when ``bias`` is given, in float32, cast back
+    to ``x``'s dtype (the bias is added before the scale, as the
+    reference's ``apply_norm(kind="layernorm")``)."""
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if bias is None:
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) + bias.float()
     return (y * scale.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
 # rotary embeddings
 # --------------------------------------------------------------------------
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    # a host scalar base: no host-to-device copy per decode step
+    return torch.pow(float(theta), exps)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float) -> torch.Tensor:
     """positions [...] -> angles [..., head_dim // 2] (float32)."""
-    half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    # a host scalar base: no host-to-device copy per decode step
-    freqs = torch.pow(float(theta), exps)
+    freqs = _freqs(head_dim // 2, theta, positions.device)
     return positions.float()[..., None] * freqs
+
+
+def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): positions3 [3, ...] (t, h, w ids) -> angles
+    [..., head_dim // 2] (float32).
+
+    The ``head_dim // 2`` frequency slots split into ``sections`` (t, h,
+    w), each slice rotated by its own coordinate. Text tokens carry t == h
+    == w, where the angles equal :func:`rope_angles`' bitwise (the same
+    frequencies times the same float position)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = _freqs(half, theta, positions3.device)
+    sel = torch.repeat_interleave(
+        torch.arange(3, device=positions3.device),
+        torch.tensor(sections, device=positions3.device))   # slot -> coord
+    coord = torch.movedim(positions3, 0, -1).float()         # [..., 3]
+    return coord[..., sel] * freqs
 
 
 def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -91,9 +126,18 @@ def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GeGLU)
 # --------------------------------------------------------------------------
+def activation(act: str):
+    """``"silu"`` or ``"gelu"`` (tanh form, as ``jax.nn.gelu``)."""
+    if act == "silu":
+        return F.silu
+    if act == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {act!r}")
+
+
 def apply_mlp(wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
-    """``(silu(x @ wg) * (x @ wu)) @ wd`` in the parameter dtype."""
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+              x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``(act(x @ wg) * (x @ wu)) @ wd`` in the parameter dtype."""
+    return (activation(act)(x @ wg) * (x @ wu)) @ wd

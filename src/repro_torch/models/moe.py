@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import apply_mlp
+from .layers import activation, apply_mlp
 
 
 def router(x: torch.Tensor, wr: torch.Tensor, top_k: int):
@@ -71,24 +71,18 @@ def dispatch_plan(ids: torch.Tensor, n_experts: int, C: int):
     return order, rank, keep, dest
 
 
-def _check_act(act: str) -> None:
-    if act != "silu":
-        raise NotImplementedError(f"MoE act={act!r} is ported with the "
-                                  "families that use it (ROADMAP queue 1 "
-                                  "item 3)")
-
-
-def _shared(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _shared(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     s = p["shared"]
-    return apply_mlp(s["wg"], s["wu"], s["wd"], x)
+    return apply_mlp(s["wg"], s["wu"], s["wd"], x, act)
 
 
 def apply_moe(p: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
               dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (y [B,S,D], aux loss), one dispatch group per row;
-    plus the shared expert's MLP of ``x`` where ``p`` has one."""
-    _check_act(act)
+    plus the shared expert's MLP of ``x`` where ``p`` has one. ``act``:
+    ``"silu"`` (SwiGLU experts) or ``"gelu"`` (GeGLU, tanh form)."""
+    f = activation(act)
     B, S, D = x.shape
     E = p["wr"].shape[1]
     w, ids, aux = router(x.reshape(B * S, D), p["wr"], top_k)
@@ -101,7 +95,7 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[rows, dest] = x[rows, toks]
     eb = buf[:, :E * C].reshape(B, E, C, D)
-    h = F.silu(torch.einsum("becd,edf->becf", eb, p["wg"])) \
+    h = f(torch.einsum("becd,edf->becf", eb, p["wg"])) \
         * torch.einsum("becd,edf->becf", eb, p["wu"])
     y_e = torch.einsum("becf,efd->becd", h, p["wd"]).reshape(B, E * C, D)
     y_e = torch.cat([y_e, torch.zeros((B, 1, D), dtype=y_e.dtype,
@@ -113,7 +107,7 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     wk = w.reshape(B, S, top_k, 1).to(y_tok.dtype)
     y = torch.sum(y_tok * wk, dim=2)
     if "shared" in p:
-        y = y + _shared(p, x)
+        y = y + _shared(p, x, act)
     return y, aux
 
 
@@ -123,7 +117,7 @@ def apply_moe_dense_ref(p: dict, x: torch.Tensor, top_k: int,
     gathers, no capacity and no drops, plus the shared expert. O(T*k*D*F)
     weight bytes gathered: for small test configs only; no serve path
     calls it."""
-    _check_act(act)
+    f = activation(act)
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     w, ids, _ = router(xf, p["wr"], top_k)
@@ -131,11 +125,11 @@ def apply_moe_dense_ref(p: dict, x: torch.Tensor, top_k: int,
     def per_k(j):
         e = ids[:, j]
         wg, wu, wd = p["wg"][e], p["wu"][e], p["wd"][e]
-        h = F.silu(torch.einsum("td,tdf->tf", xf, wg)) \
+        h = f(torch.einsum("td,tdf->tf", xf, wg)) \
             * torch.einsum("td,tdf->tf", xf, wu)
         return torch.einsum("tf,tfd->td", h, wd) * w[:, j, None].to(x.dtype)
 
     y = sum(per_k(j) for j in range(top_k))
     if "shared" in p:
-        y = y + _shared(p, xf)
+        y = y + _shared(p, xf, act)
     return y.reshape(B, S, D)

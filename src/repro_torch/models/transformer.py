@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense, MoE and hybrid families: one block module per
-layer.
+"""Decoder-only LM, dense, MoE, hybrid and xLSTM families: one block
+module per layer.
 
 Counterpart of ``repro.models.transformer``. The reference stacks the
 parameters of each position of the layer pattern ``[n_periods, ...]`` and
@@ -15,24 +15,26 @@ Entry points, as the reference's: :meth:`Transformer.init_params`,
 (tokens -> last logits + decode state). The decode state is
 ``{"blocks": [one dict per layer], "pos": int}``: an attention layer holds
 its caches ``{"k", "v"}`` ``[B, T, Hkv, dh]``, a Mamba layer its carry
-``{"conv" [B, K-1, di], "h" [B, di, N] float32}``. ``decode_step`` updates
-the per-layer dicts **in place** (K/V written into the caches) and
-advances ``pos`` (the reference returns a new state), which saves a cache
-copy per token. ``pos`` is a host int, so no step waits on the device to
-learn it.
+``{"conv" [B, K-1, di], "h" [B, di, N] float32}``, an mLSTM layer
+``{"conv", "C", "n", "m"}`` and an sLSTM layer ``{"h", "c", "n", "m"}``
+(:mod:`.xlstm`). ``decode_step`` updates the per-layer dicts **in place**
+(K/V written into the caches) and advances ``pos`` (the reference returns
+a new state), which saves a cache copy per token. ``pos`` is a host int,
+so no step waits on the device to learn it.
 
-What is built: the dense family's qwen2-style configs (attention layers
-with a SwiGLU MLP, RMSNorm, RoPE); the MoE family (attention layers whose
-feed-forward is an MLP or a MoE as ``cfg.layer_kinds()`` interleaves them
-by ``moe_every`` / ``moe_offset``, with the shared expert of
-``n_shared_experts``: phi3.5-moe has a MoE on every layer, llama4-maverick
-on every second, odd, layer); and the hybrid family of jamba (Mamba or
-attention mixers, MLP or MoE feed-forwards, ``rope_type="none"``).
-Prefill attention goes through the flash-attention kernel on the card;
-Mamba prefill through the selective-scan kernel. xLSTM layers, the
-encoder-decoder family, M-RoPE, LayerNorm, GeGLU (and a GELU MoE),
-sliding windows and logit soft-capping raise ``NotImplementedError``
-(ROADMAP queue 1 item 3).
+What is built: every family but the encoder-decoder (:mod:`.encdec`).
+Attention layers with a SwiGLU or GeGLU MLP or a MoE (``layer_kinds()``
+interleaves them by ``moe_every`` / ``moe_offset``, with the shared expert
+of ``n_shared_experts``), Mamba layers (jamba), mLSTM / sLSTM layers with
+no feed-forward (xLSTM, ``ff: "none"``); RMSNorm or LayerNorm; RoPE,
+M-RoPE (qwen2-vl: ``prefill`` takes ``positions3 [3, B, S]`` and
+``embeds [B, S, D]``) or none. A sliding window keeps the reference's
+rolling buffer of ``T = min(max_len, window)`` slots: token ``j`` lives at
+slot ``j % T``, prefill attention is masked to the window, and decode
+attends the whole buffer (it holds the window). Prefill attention goes
+through the flash-attention kernel on the card; Mamba prefill through the
+selective-scan kernel. Logit soft-capping raises ``NotImplementedError``
+(ROADMAP queue 1 item 6: the flash kernel has no soft-cap).
 """
 
 from __future__ import annotations
@@ -42,13 +44,19 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from .attention import causal_attention, decode_attention
+from .attention import blocked_attention, decode_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rotary, dense_init_,
-                     embed_init_, norm_init_, rope_angles)
-from .mamba import (F32_LEAVES, apply_mamba, mamba_decode_step, mamba_init_,
+                     embed_init_, mrope_angles, norm_init_, rope_angles)
+from .mamba import (apply_mamba, mamba_decode_step, mamba_init_,
                     mamba_shapes, mamba_state_init)
+from .mamba import F32_LEAVES as MAMBA_F32
 from .moe import apply_moe
+from .xlstm import F32_LEAVES as XLSTM_F32
+from .xlstm import (apply_mlstm, apply_slstm, mlstm_decode_step,
+                    mlstm_init_, mlstm_shapes, mlstm_state_init,
+                    slstm_decode_step, slstm_init_, slstm_shapes,
+                    slstm_state_init)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -61,38 +69,36 @@ def _dtype(name) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot build yet."""
-    later = {"the encoder-decoder family": cfg.family == "encdec",
-             f"rope_type={cfg.rope_type!r}": cfg.rope_type == "mrope",
-             f"norm={cfg.norm!r}": cfg.norm != "rmsnorm",
-             f"act={cfg.act!r}": cfg.act != "silu",
-             "sliding-window attention": bool(cfg.sliding_window),
-             "attention logit soft-capping": bool(cfg.attn_logit_softcap)}
-    for what, hit in later.items():
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is ported in a later slice (ROADMAP "
-                "queue 1 item 3)")
-    for kind in cfg.layer_kinds():
-        if kind["mix"] not in ("attn", "mamba"):
-            raise NotImplementedError(
-                f"{cfg.name}: {kind['mix']} layers are ported in a later "
-                "slice (ROADMAP queue 1 item 3)")
+    """Raise ``NotImplementedError`` for what the port does not build."""
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            f"{cfg.name}: attention logit soft-capping is not ported: the "
+            "flash kernel has no soft-cap (ROADMAP queue 1 item 6)")
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of an attention layer's cache: ``max_len``, or the rolling
+    buffer's ``min(max_len, window)`` under a sliding window."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
 
 
 class Norm(nn.Module):
-    """RMSNorm with a ``scale [d]``."""
+    """RMSNorm with a ``scale [d]``, or LayerNorm with a ``bias [d]`` as
+    well (``cfg.norm``)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.eps = cfg.norm_eps
         self.scale = _param((cfg.d_model,), dtype, device)
+        self.bias = (_param((cfg.d_model,), dtype, device)
+                     if cfg.norm == "layernorm" else None)
 
     def init_params(self) -> None:
-        norm_init_(self.scale)
+        norm_init_(self.scale, self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(self.scale, x, self.eps)
+        return apply_norm(self.scale, x, self.eps, self.bias)
 
 
 class Attention(nn.Module):
@@ -123,30 +129,42 @@ class Attention(nn.Module):
                 with torch.no_grad():
                     b.zero_()
 
+    def q(self, y: torch.Tensor) -> torch.Tensor:
+        """y [B,S,d] -> q [B,S,Hq,dh], not roped."""
+        q = y @ self.wq
+        if self.bq is not None:
+            q = q + self.bq
+        return q.reshape(*y.shape[:2], self.n_heads, self.head_dim)
+
+    def kv(self, y: torch.Tensor):
+        """y [B,S,d] -> k, v [B,S,Hkv,dh], not roped."""
+        k, v = y @ self.wk, y @ self.wv
+        if self.bk is not None:
+            k, v = k + self.bk, v + self.bv
+        sh = (*y.shape[:2], self.n_kv_heads, self.head_dim)
+        return k.reshape(sh), v.reshape(sh)
+
     def qkv(self, y: torch.Tensor, angles: torch.Tensor | None):
         """y [B,S,d] -> q [B,S,Hq,dh], k/v [B,S,Hkv,dh]; q and k roped
-        unless ``angles`` is ``None`` (``rope_type="none"``)."""
-        B, S, _ = y.shape
-        q, k, v = y @ self.wq, y @ self.wk, y @ self.wv
-        if self.bq is not None:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, self.n_heads, self.head_dim)
-        k = k.reshape(B, S, self.n_kv_heads, self.head_dim)
-        v = v.reshape(B, S, self.n_kv_heads, self.head_dim)
+        unless ``angles`` is ``None`` (``rope_type="none"``). ``angles``
+        is ``[S, dh/2]`` or, per row (M-RoPE), ``[B, S, dh/2]``."""
+        q, (k, v) = self.q(y), self.kv(y)
         if angles is None:
             return q, k, v
-        a = angles[None, :, None, :]                     # [1,S,1,half]
+        a = (angles[None] if angles.dim() == 2 else angles)[:, :, None, :]
         return apply_rotary(q, a), apply_rotary(k, a), v
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``wg``/``wu [d, ff]``, ``wd [ff, d]``; ``ff`` is
-    ``cfg.d_ff`` unless given (a MoE's shared expert)."""
+    """SwiGLU (or GeGLU with ``cfg.act="gelu"``): ``wg``/``wu [d, ff]``,
+    ``wd [ff, d]``; ``ff`` is ``cfg.d_ff`` unless given (a MoE's shared
+    expert)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device,
                  ff: int | None = None):
         super().__init__()
         ff = cfg.d_ff if ff is None else ff
+        self.act = cfg.act
         self.wg = _param((cfg.d_model, ff), dtype, device)
         self.wu = _param((cfg.d_model, ff), dtype, device)
         self.wd = _param((ff, cfg.d_model), dtype, device)
@@ -156,28 +174,50 @@ class MLP(nn.Module):
             dense_init_(w, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_mlp(self.wg, self.wu, self.wd, x)
+        return apply_mlp(self.wg, self.wu, self.wd, x, self.act)
 
 
-class Mamba(nn.Module):
-    """The Mamba mixer's leaves (:mod:`.mamba`), ``a_log`` / ``dt_bias`` /
-    ``d_skip`` in float32."""
+class Leaves(nn.Module):
+    """A mixer held as named leaves (:mod:`.mamba`, :mod:`.xlstm`), in the
+    model dtype but ``f32`` (those kept float32); ``p()`` hands them to the
+    module's functions as a mapping, ``init_params`` fills them with
+    ``init_``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, shapes: dict, f32: tuple, init_, dtype, device,
+                 **attrs):
         super().__init__()
-        self.d_state = cfg.mamba_d_state
-        shapes = mamba_shapes(cfg.d_model, cfg.mamba_expand,
-                              cfg.mamba_d_state, cfg.mamba_d_conv)
         self.names = tuple(shapes)
+        self._init = init_
         for name, sh in shapes.items():
             setattr(self, name, _param(
-                sh, torch.float32 if name in F32_LEAVES else dtype, device))
+                sh, torch.float32 if name in f32 else dtype, device))
+        for k, v in attrs.items():
+            setattr(self, k, v)
 
     def p(self) -> dict:
         return {n: getattr(self, n) for n in self.names}
 
     def init_params(self, gen: torch.Generator) -> None:
-        mamba_init_(self.p(), gen)
+        self._init(self.p(), gen)
+
+
+def mixer(cfg: ModelConfig, mix: str, dtype, device) -> nn.Module:
+    """The mixer of a layer of kind ``mix``."""
+    d = cfg.d_model
+    if mix == "attn":
+        return Attention(cfg, dtype, device)
+    if mix == "mamba":
+        return Leaves(mamba_shapes(d, cfg.mamba_expand, cfg.mamba_d_state,
+                                   cfg.mamba_d_conv), MAMBA_F32, mamba_init_,
+                      dtype, device, d_state=cfg.mamba_d_state)
+    if mix == "mlstm":
+        return Leaves(mlstm_shapes(d, cfg.n_heads, cfg.xlstm_proj_factor,
+                                   cfg.xlstm_conv), XLSTM_F32, mlstm_init_,
+                      dtype, device)
+    if mix == "slstm":
+        return Leaves(slstm_shapes(d, cfg.n_heads), XLSTM_F32, slstm_init_,
+                      dtype, device)
+    raise ValueError(f"unknown mixer {mix!r}")
 
 
 class MoE(nn.Module):
@@ -219,25 +259,30 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: ``norm1 -> mix (attention or Mamba) -> norm2 -> ff (MLP
-    or MoE)``, each a residual branch (the reference's parameter tree
-    names)."""
+    """One layer: ``norm1 -> mix (attention, Mamba, mLSTM or sLSTM) ->
+    norm2 -> ff (MLP or MoE)``, each a residual branch (the reference's
+    parameter tree names); ``ff: "none"`` has no ``norm2`` and no ``ff``."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, dtype, device):
         super().__init__()
         self.kind = kind
         self.norm1 = Norm(cfg, dtype, device)
-        self.mix = (Attention(cfg, dtype, device) if kind["mix"] == "attn"
-                    else Mamba(cfg, dtype, device))
-        self.norm2 = Norm(cfg, dtype, device)
-        self.ff = (MLP(cfg, dtype, device) if kind["ff"] == "mlp"
-                   else MoE(cfg, dtype, device))
+        self.mix = mixer(cfg, kind["mix"], dtype, device)
+        self.norm2 = self.ff = None
+        if kind["ff"] != "none":
+            self.norm2 = Norm(cfg, dtype, device)
+            self.ff = (MLP(cfg, dtype, device) if kind["ff"] == "mlp"
+                       else MoE(cfg, dtype, device))
 
     def init_params(self, gen: torch.Generator) -> None:
         self.norm1.init_params()
         self.mix.init_params(gen)
-        self.norm2.init_params()
-        self.ff.init_params(gen)
+        if self.ff is not None:
+            self.norm2.init_params()
+            self.ff.init_params(gen)
+
+    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.ff is None else x + self.ff(self.norm2(x))
 
 
 class Transformer(nn.Module):
@@ -249,6 +294,9 @@ class Transformer(nn.Module):
         super().__init__()
         cfg.validate()
         check_supported(cfg)
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the encoder-decoder family is "
+                             "built by repro_torch.models.encdec")
         self.cfg = cfg
         dev = resolve_device(device)
         dt = _dtype(cfg.dtype)
@@ -270,7 +318,8 @@ class Transformer(nn.Module):
     def init_params(self, gen: torch.Generator) -> "Transformer":
         """Fill every parameter from ``gen`` (a generator on the model's
         device): embedding N(0, 0.02), dense weights truncated normal at
-        fan-in scale, norm scales 1, biases 0."""
+        fan-in scale, norm scales 1, biases 0 (the mixers' own inits in
+        :mod:`.mamba` and :mod:`.xlstm`)."""
         embed_init_(self.embed, gen)
         for blk in self.blocks:
             blk.init_params(gen)
@@ -290,72 +339,119 @@ class Transformer(nn.Module):
         """The lm-head product in the model dtype, then f32."""
         return (self.final_norm(h) @ self.lm_head()).float()
 
-    def _angles(self, start: int, n: int) -> torch.Tensor | None:
-        if self.cfg.rope_type == "none":
+    def _angles(self, start: int, n: int,
+                positions3: torch.Tensor | None = None):
+        """Rotary angles of positions ``start .. start+n-1`` (``[n,
+        dh/2]``), or with M-RoPE's ``positions3 [3, B, n]`` per row
+        (``[B, n, dh/2]``). Without ``positions3`` M-RoPE's angles are
+        RoPE's, bitwise (text positions: t == h == w)."""
+        cfg = self.cfg
+        if cfg.rope_type == "none":
             return None
+        if positions3 is not None:
+            if cfg.rope_type != "mrope":
+                raise ValueError(f"{cfg.name}: positions3 needs M-RoPE")
+            return mrope_angles(positions3.to(self.device), cfg.head_dim,
+                                cfg.rope_theta, cfg.mrope_sections)
         pos = torch.arange(start, start + n, device=self.device)
-        return rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
+        return rope_angles(pos, cfg.head_dim, cfg.rope_theta)
 
     def init_decode_state(self, batch_size: int, max_len: int) -> dict:
-        """Zeroed caches ``[B, max_len, Hkv, dh]`` per attention layer and
-        zeroed carries per Mamba layer, ``pos`` 0."""
-        sh = (batch_size, max_len, self.cfg.n_kv_heads, self.cfg.head_dim)
+        """Zeroed caches ``[B, T, Hkv, dh]`` per attention layer (``T`` =
+        :func:`cache_len`), zeroed carries per recurrent layer, ``pos`` 0."""
+        T = cache_len(self.cfg, max_len)
+        sh = (batch_size, T, self.cfg.n_kv_heads, self.cfg.head_dim)
         zeros = lambda: torch.zeros(sh, dtype=self.dtype, device=self.device)
         blocks = []
         for blk in self.blocks:
-            if blk.kind["mix"] == "attn":
+            mix = blk.kind["mix"]
+            if mix == "attn":
                 blocks.append({"k": zeros(), "v": zeros()})
-            else:
+            elif mix == "mamba":
                 blocks.append(mamba_state_init(batch_size, blk.mix.p(),
                                                blk.mix.d_state))
+            elif mix == "mlstm":
+                blocks.append(mlstm_state_init(batch_size, blk.mix.p()))
+            else:
+                blocks.append(slstm_state_init(batch_size, blk.mix.p()))
         return {"blocks": blocks, "pos": 0}
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, state: dict):
         """One token for every stream: ``token [B]`` -> ``(logits [B, V]
-        float32, state)``; the state is updated in place."""
+        float32, state)``; the state is updated in place. Under a sliding
+        window the token's K/V go to slot ``pos % T`` and attention reads
+        the ``min(pos + 1, T)`` filled slots (the buffer holds the
+        window)."""
         pos = state["pos"]
         x = self.embed_tokens(token[:, None])              # [B,1,D]
         B = x.shape[0]
         angles = self._angles(pos, 1)
         for blk, st in zip(self.blocks, state["blocks"]):
             y = blk.norm1(x)
-            if blk.kind["mix"] == "attn":
+            mix = blk.kind["mix"]
+            if mix == "attn":
                 q, k, v = blk.mix.qkv(y, angles)
-                st["k"][:, pos] = k[:, 0]
-                st["v"][:, pos] = v[:, 0]
-                o = decode_attention(q, st["k"], st["v"], pos + 1)
-                x = x + o.reshape(B, 1, -1) @ blk.mix.wo
+                T = st["k"].shape[1]
+                slot = pos % T if self.cfg.sliding_window else pos
+                st["k"][:, slot] = k[:, 0]
+                st["v"][:, slot] = v[:, 0]
+                o = decode_attention(q, st["k"], st["v"], min(pos + 1, T))
+                o = o.reshape(B, 1, -1) @ blk.mix.wo
             else:
-                o, new = mamba_decode_step(blk.mix.p(), y, st,
-                                           blk.mix.d_state)
+                if mix == "mamba":
+                    o, new = mamba_decode_step(blk.mix.p(), y, st,
+                                               blk.mix.d_state)
+                else:
+                    step = (mlstm_decode_step if mix == "mlstm"
+                            else slstm_decode_step)
+                    o, new = step(blk.mix.p(), y, st)
                 st.update(new)
-                x = x + o
-            x = x + blk.ff(blk.norm2(x))
+            x = blk.feed_forward(x + o)
         state["pos"] = pos + 1
         return self._logits(x[:, 0]), state
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                positions3: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None):
         """``tokens [B, S]`` -> ``(last-token logits [B, V] float32, decode
-        state at pos = S)``, the whole prompt in one causal pass."""
+        state at pos = S)``, the whole prompt in one pass. ``embeds [B, S,
+        D]`` (a stub frontend's patch / text embeddings) replace the token
+        embeddings; ``positions3 [3, B, S]`` are M-RoPE's (t, h, w) ids.
+        Under a sliding window attention is masked to it and, when ``S >=
+        T``, the cache keeps the last ``T`` tokens rolled so that token
+        ``j`` sits at slot ``j % T``."""
         B, S = tokens.shape
-        x = self.embed_tokens(tokens)
-        angles = self._angles(0, S)
+        x = (self.embed_tokens(tokens) if embeds is None
+             else embeds.to(device=self.device, dtype=self.dtype))
+        angles = self._angles(0, S, positions3)
         state = self.init_decode_state(B, max_len)
         for blk, st in zip(self.blocks, state["blocks"]):
             y = blk.norm1(x)
-            if blk.kind["mix"] == "attn":
+            mix = blk.kind["mix"]
+            if mix == "attn":
                 q, k, v = blk.mix.qkv(y, angles)
-                o = causal_attention(q, k, v)
-                x = x + o.reshape(B, S, -1) @ blk.mix.wo
-                st["k"][:, :S] = k
-                st["v"][:, :S] = v
+                o = blocked_attention(q, k, v,
+                                      window=self.cfg.sliding_window)
+                o = o.reshape(B, S, -1) @ blk.mix.wo
+                T = st["k"].shape[1]
+                if S >= T:
+                    shift = (S - T) % T
+                    st["k"].copy_(torch.roll(k[:, S - T:], shift, 1))
+                    st["v"].copy_(torch.roll(v[:, S - T:], shift, 1))
+                else:
+                    st["k"][:, :S] = k
+                    st["v"][:, :S] = v
             else:
-                o, new = apply_mamba(blk.mix.p(), y, blk.mix.d_state,
-                                     return_state=True)
+                p = blk.mix.p()
+                if mix == "mamba":
+                    o, new = apply_mamba(p, y, blk.mix.d_state,
+                                         return_state=True)
+                else:
+                    fn = apply_mlstm if mix == "mlstm" else apply_slstm
+                    o, new = fn(p, y, return_state=True)
                 st.update(new)
-                x = x + o
-            x = x + blk.ff(blk.norm2(x))
+            x = blk.feed_forward(x + o)
         state["pos"] = S
         return self._logits(x[:, -1]), state

@@ -1,0 +1,246 @@
+"""xLSTM mixers: mLSTM (matrix memory) and sLSTM (scalar memory,
+block-diagonal recurrence), prefill and one-token decode.
+
+Counterpart of ``repro.models.xlstm`` (Beck et al. 2024, arXiv:2405.04517).
+Both cells gate exponentially with the max-stabiliser ``m``, which starts
+at 0 (not -inf), as there::
+
+  m_t = max(f~_t + m_{t-1}, i~_t)
+  i = exp(i~_t - m_t),  f = exp(f~_t + m_{t-1} - m_t)
+
+* mLSTM: a causal conv over the up-projection's first half ``a`` gives
+  ``xc``; q and k come from ``xc``, v from ``a`` (the pre-conv branch),
+  each through per-head ``[dh, dh]`` block-diagonal weights; the memory
+  ``C [dh, dh]`` a head is read as ``h = C q / max(|n . q|, 1)``.
+* sLSTM: four gates (z, i, f, o) at model width from the input projection
+  ``w [d, 4d]`` plus a per-head recurrence ``r [4, H, dh, dh]``.
+
+The reference's prefill is a chunked ``lax.scan`` with remat, a training
+device; prefill here is a plain loop over time (the projections, conv and
+gates computed for the whole sequence first), as :func:`apply_mamba`
+leaves its chunked route out. The recurrences run in float32. Parameters
+are mappings with the reference's leaf names and orientation
+(``[d_in, d_out]``); :data:`F32_LEAVES` stay float32 whatever the model
+dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+#: parameter leaves kept in float32 whatever the model dtype
+F32_LEAVES = ("f_bias", "i_bias", "skip", "bias")
+
+
+# --------------------------------------------------------------------------
+# mLSTM
+# --------------------------------------------------------------------------
+def mlstm_shapes(d: int, n_heads: int, proj_factor: float,
+                 d_conv: int) -> dict:
+    """Leaf name -> shape."""
+    di = int(proj_factor * d)
+    dh = di // n_heads
+    return {"w_up": (d, 2 * di), "w_q": (n_heads, dh, dh),
+            "w_k": (n_heads, dh, dh), "w_v": (n_heads, dh, dh),
+            "w_if": (di, 2 * n_heads), "w_o": (di, di), "w_dn": (di, d),
+            "conv": (d_conv, di), "f_bias": (n_heads,),
+            "i_bias": (n_heads,), "skip": (di,)}
+
+
+def _block_diag_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """N(0, 1/dh) for ``[..., dh, dh]`` per-head weights, drawn in f32."""
+    f = torch.randn(w.shape, generator=gen, device=w.device)
+    w.copy_(f / math.sqrt(w.shape[-1]))
+
+
+def mlstm_init_(p: dict, gen: torch.Generator) -> dict:
+    """Fill ``p`` in place with the reference's distributions (not its
+    bits): dense weights truncated normal at fan-in scale, q / k / v
+    N(0, 1/dh), ``conv`` the identity on the last tap, forget bias 3,
+    input bias 0, skip 1."""
+    from .layers import dense_init_
+    for name in ("w_up", "w_if", "w_o", "w_dn"):
+        dense_init_(p[name], gen)
+    with torch.no_grad():
+        for name in ("w_q", "w_k", "w_v"):
+            _block_diag_init_(p[name], gen)
+        p["conv"].zero_()
+        p["conv"][-1] = 1.0
+        p["f_bias"].fill_(3.0)
+        p["i_bias"].zero_()
+        p["skip"].fill_(1.0)
+    return p
+
+
+def _mlstm_qkv(p: dict, xc: torch.Tensor, xv: torch.Tensor):
+    """q, k (from ``xc``; k scaled by 1/sqrt(dh)) and v (from ``xv``)
+    ``[..., H, dh]`` in float32."""
+    H, dh = p["w_q"].shape[:2]
+    xch = xc.reshape(*xc.shape[:-1], H, dh)
+    xvh = xv.reshape(*xv.shape[:-1], H, dh)
+    q = torch.einsum("...hk,hkv->...hv", xch, p["w_q"]).float()
+    k = torch.einsum("...hk,hkv->...hv", xch, p["w_k"]).float() \
+        / math.sqrt(dh)
+    v = torch.einsum("...hk,hkv->...hv", xvh, p["w_v"]).float()
+    return q, k, v
+
+
+def _mlstm_gates(p: dict, xc: torch.Tensor):
+    """Raw input and forget gates ``[..., H]`` in float32, biased."""
+    i_raw, f_raw = (xc @ p["w_if"]).float().chunk(2, dim=-1)
+    return i_raw + p["i_bias"], f_raw + p["f_bias"]
+
+
+def _mlstm_cell(C, n, m, q, k, v, i_raw, f_raw):
+    """One step of the matrix memory: ``(h [B,H,dh], C, n, m)``."""
+    m_new = torch.maximum(f_raw + m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(f_raw + m - m_new)
+    C = f_g[..., None, None] * C \
+        + i_g[..., None, None] * torch.einsum("bhk,bhv->bhkv", k, v)
+    n = f_g[..., None] * n + i_g[..., None] * k
+    num = torch.einsum("bhkv,bhk->bhv", C, q)
+    den = torch.clamp(torch.einsum("bhk,bhk->bh", n, q).abs(), min=1.0)
+    return num / den[..., None], C, n, m_new
+
+
+def _mlstm_out(p: dict, h, xc, o, gate, dtype):
+    """``(o * h + skip * xc) * silu(gate)`` in f32, cast, down-projected."""
+    h = o * h + xc.float() * p["skip"]
+    return (h * F.silu(gate.float())).to(dtype) @ p["w_dn"]
+
+
+def apply_mlstm(p: dict, x: torch.Tensor, return_state: bool = False):
+    """Prefill: ``x [B,S,D] -> [B,S,D]``; with ``return_state`` also the
+    decode carry ``{"conv" [B,K-1,di], "C" [B,H,dh,dh], "n" [B,H,dh],
+    "m" [B,H]}`` (float32 but ``conv``) at step S."""
+    B, S, _ = x.shape
+    a, gate = (x @ p["w_up"]).chunk(2, dim=-1)              # [B,S,di]
+    K = p["conv"].shape[0]
+    apad = F.pad(a, (0, 0, K - 1, 0))                        # causal pad
+    xc = F.silu(sum(apad[:, j:j + S] * p["conv"][j] for j in range(K)))
+    q, k, v = _mlstm_qkv(p, xc, a)                           # [B,S,H,dh]
+    i_raw, f_raw = _mlstm_gates(p, xc)                       # [B,S,H]
+    o = torch.sigmoid((xc @ p["w_o"]).float())
+    st = mlstm_state_init(B, p)
+    C, n, m = st["C"], st["n"], st["m"]
+    hs = []
+    for t in range(S):
+        h, C, n, m = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
+                                 i_raw[:, t], f_raw[:, t])
+        hs.append(h)
+    h = torch.stack(hs, 1).reshape(B, S, -1)
+    out = _mlstm_out(p, h, xc, o, gate, x.dtype)
+    if not return_state:
+        return out
+    return out, {"conv": apad[:, S:S + K - 1].to(p["conv"].dtype),
+                 "C": C, "n": n, "m": m}
+
+
+def mlstm_state_init(batch: int, p: dict) -> dict:
+    """Zeroed decode carry of one mLSTM layer (``m`` 0, as the
+    reference's)."""
+    H, dh = p["w_q"].shape[:2]
+    K, di = p["conv"].shape
+    dev = p["conv"].device
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    return {"conv": torch.zeros((batch, K - 1, di), dtype=p["conv"].dtype,
+                                device=dev),
+            "C": z(batch, H, dh, dh), "n": z(batch, H, dh), "m": z(batch, H)}
+
+
+def mlstm_decode_step(p: dict, x: torch.Tensor, state: dict
+                      ) -> tuple[torch.Tensor, dict]:
+    """One token ``x [B,1,D]`` -> ``(y [B,1,D], new state)``."""
+    B = x.shape[0]
+    a, gate = (x[:, 0] @ p["w_up"]).chunk(2, dim=-1)
+    hist = torch.cat([state["conv"], a[:, None]], 1)         # [B,K,di]
+    xc = F.silu(torch.einsum("bkd,kd->bd", hist, p["conv"]))
+    q, k, v = _mlstm_qkv(p, xc, a)
+    i_raw, f_raw = _mlstm_gates(p, xc)
+    o = torch.sigmoid((xc @ p["w_o"]).float())
+    h, C, n, m = _mlstm_cell(state["C"], state["n"], state["m"], q, k, v,
+                             i_raw, f_raw)
+    y = _mlstm_out(p, h.reshape(B, -1), xc, o, gate, x.dtype)
+    return y[:, None], {"conv": hist[:, 1:], "C": C, "n": n, "m": m}
+
+
+# --------------------------------------------------------------------------
+# sLSTM
+# --------------------------------------------------------------------------
+def slstm_shapes(d: int, n_heads: int) -> dict:
+    """Leaf name -> shape."""
+    dh = d // n_heads
+    return {"w": (d, 4 * d), "r": (4, n_heads, dh, dh), "w_dn": (d, d),
+            "bias": (4 * d,)}
+
+
+def slstm_init_(p: dict, gen: torch.Generator) -> dict:
+    """Fill ``p`` in place with the reference's distributions: dense
+    weights truncated normal at fan-in scale, ``r`` N(0, 1/dh), the bias
+    0 but the forget gate's 3."""
+    from .layers import dense_init_
+    dense_init_(p["w"], gen)
+    dense_init_(p["w_dn"], gen)
+    d = p["w_dn"].shape[0]
+    with torch.no_grad():
+        _block_diag_init_(p["r"], gen)
+        p["bias"].zero_()
+        p["bias"][2 * d:3 * d] = 3.0
+    return p
+
+
+def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple) -> tuple:
+    """One recurrence step; ``xw_t [B, 4D]`` the input's contribution.
+    The recurrence ``[4, B, H, dh]`` is laid out ``(4, B, D) -> (B, 4D)``
+    before the gates split, as the reference's."""
+    h, c, n, m = carry                                       # [B,D] each
+    B, D = h.shape
+    _, H, dh, _ = p["r"].shape
+    rec = torch.einsum("bhk,ghkv->gbhv", h.reshape(B, H, dh).to(p["r"].dtype),
+                       p["r"])
+    rec = rec.reshape(4, B, D).transpose(0, 1).reshape(B, 4 * D)
+    raw = (xw_t + rec).float() + p["bias"]
+    z_r, i_r, f_r, o_r = raw.chunk(4, dim=-1)
+    m_new = torch.maximum(f_r + m, i_r)
+    i_g, f_g = torch.exp(i_r - m_new), torch.exp(f_r + m - m_new)
+    c_new = f_g * c + i_g * torch.tanh(z_r)
+    n_new = f_g * n + i_g
+    h_new = torch.sigmoid(o_r) * c_new / torch.clamp(n_new, min=1.0)
+    return h_new, c_new, n_new, m_new
+
+
+def apply_slstm(p: dict, x: torch.Tensor, return_state: bool = False):
+    """Prefill: ``x [B,S,D] -> [B,S,D]``, sequential over S; with
+    ``return_state`` also the carry ``{"h", "c", "n", "m"}`` (each
+    ``[B, D]`` float32)."""
+    B, S, D = x.shape
+    xw = x @ p["w"]                                          # [B,S,4D]
+    carry = tuple(slstm_state_init(B, p).values())
+    hs = []
+    for t in range(S):
+        carry = _slstm_step(p, xw[:, t], carry)
+        hs.append(carry[0])
+    out = torch.stack(hs, 1).to(x.dtype) @ p["w_dn"]
+    if not return_state:
+        return out
+    return out, dict(zip(("h", "c", "n", "m"), carry))
+
+
+def slstm_state_init(batch: int, p: dict) -> dict:
+    """Zeroed carry of one sLSTM layer (``m`` 0, as the reference's)."""
+    d = p["w_dn"].shape[0]
+    return {k: torch.zeros((batch, d), dtype=torch.float32,
+                           device=p["w"].device) for k in ("h", "c", "n", "m")}
+
+
+def slstm_decode_step(p: dict, x: torch.Tensor, state: dict
+                      ) -> tuple[torch.Tensor, dict]:
+    """One token ``x [B,1,D]`` -> ``(y [B,1,D], new state)``."""
+    carry = (state["h"], state["c"], state["n"], state["m"])
+    h, c, n, m = _slstm_step(p, x[:, 0] @ p["w"], carry)
+    y = h.to(x.dtype) @ p["w_dn"]
+    return y[:, None], {"h": h, "c": c, "n": n, "m": m}

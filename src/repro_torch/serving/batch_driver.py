@@ -38,6 +38,7 @@ from repro_torch.paging.tiered_kv import (TieredKV, normalize_attn_kernel,
                                           tiered_attention, tiered_init,
                                           tiered_invalidate, tiered_min_slots,
                                           tiered_stats, tiered_sweep)
+from repro_torch.serving.executor import synth_kv
 
 #: event-type totals that must reproduce the pool counters exactly
 #: whenever a trace is written
@@ -48,9 +49,17 @@ PINNED_COUNTERS = ("hits", "misses", "partial_hits", "prefetch_hits",
 def find_dense_kv(state) -> tuple[torch.Tensor, torch.Tensor] | \
         tuple[None, None]:
     """The first attention layer's dense KV cache of a decode state,
-    ``(k, v)`` each ``[B, T, Hkv, dh]``, or ``(None, None)`` for a
-    cache-free model."""
-    for b in state.get("blocks", ()) if isinstance(state, dict) else ():
+    ``(k, v)`` each ``[B, T, Hkv, dh]`` (a decoder-only model's first
+    attention block; an encoder-decoder's self-attention stack ``[L, B,
+    T, Hkv, dh]``, layer 0), or ``(None, None)`` for a cache-free model.
+    Under a sliding window ``T`` is the rolling buffer's, which the caller
+    mirrors as it is (as the reference's)."""
+    if not isinstance(state, dict):
+        return None, None
+    skv = state.get("self_kv")
+    if isinstance(skv, dict) and skv["k"].dim() == 5:
+        return skv["k"][0], skv["v"][0]
+    for b in state.get("blocks", ()):
         if isinstance(b, dict) and "k" in b and "v" in b \
                 and b["k"].dim() == 4:
             return b["k"], b["v"]
@@ -79,8 +88,13 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
 
     kd, vd = find_dense_kv(state)
     if kd is None:
-        raise ValueError(f"{cfg.name}: no attention layer holds a KV cache "
-                         "to mirror into the paged pool")
+        # cache-free family: synthetic K/V keyed by (request, position),
+        # as the synthetic executor's (the reference draws them from
+        # PRNGKey(7) / (8); the replay's integers do not read the bytes)
+        leaf = next(t for b in state["blocks"] for t in b.values())
+        kv = [synth_kv(7, b, 0, max_len, hkv, dh, getattr(torch, cfg.dtype),
+                       leaf.device) for b in range(B)]
+        kd, vd = (torch.stack([x[i] for x in kv]) for i in (0, 1))
     dev, dtype = kd.device, kd.dtype
 
     def pad_to(x, T):

@@ -8,7 +8,11 @@ Counterpart of ``repro.serving.executor``. Two implementations:
   the last prompt token emits the first output token (greedy argmax). The
   K/V it hands the engine to mirror into the paged pool are the K/V (roped
   where the model uses RoPE) of the first attention layer at the input
-  token's position.
+  token's position; a model with no attention layer (xLSTM) mirrors the
+  synthetic executor's K/V instead, so the data path still runs end to
+  end. As the reference's, it refuses the encoder-decoder family (the
+  batch driver serves it) and a request longer than a sliding window (the
+  rolling buffer would overwrite positions the mirror holds).
 * :class:`SyntheticExecutor` — no model: hashed K/V keyed by
   ``(seed, request, position)`` and counter tokens.
 
@@ -127,6 +131,10 @@ class ModelExecutor:
 
     def __init__(self, cfg, seed: int = 0, device=None, model=None,
                  prompts: dict | None = None):
+        if cfg.family == "encdec":
+            raise ValueError("continuous-batching engine drives decoder-only "
+                             "families; encdec serving stays on the batch "
+                             "driver")
         self.cfg = cfg
         if model is None:
             model = build_model(cfg, device=device, seed=seed)
@@ -142,10 +150,17 @@ class ModelExecutor:
         self._last_tok: dict[int, torch.Tensor] = {}
         self.last_logits: dict[int, torch.Tensor] = {}
         kinds = [k["mix"] for k in cfg.layer_kinds()]
-        if "attn" not in kinds:
-            raise ValueError(f"{cfg.name}: no attention layer, so no K/V to "
-                             "mirror into the paged pool")
-        self.kv_layer = kinds.index("attn")
+        # the first attention layer's K/V are mirrored; a cache-free model
+        # (no attention layer) mirrors synthetic K/V keyed by (request,
+        # position), as the reference's (seed + 2)
+        self.kv_layer = kinds.index("attn") if "attn" in kinds else None
+        self._synth = (SyntheticExecutor(cfg.n_kv_heads, cfg.head_dim,
+                                         model.dtype, seed=seed + 2,
+                                         device=self.device)
+                       if self.kv_layer is None else None)
+        # a rolling sliding-window cache would overwrite mirrored
+        # positions: a request must fit the window (checked in begin())
+        self._cache_cap = cfg.sliding_window or None
         self.n_kv_heads = cfg.n_kv_heads
         self.n_q_heads = cfg.n_heads
         self.head_dim = cfg.head_dim
@@ -170,6 +185,11 @@ class ModelExecutor:
         return self._prompts[req.req_id]
 
     def begin(self, req: Request) -> None:
+        if self._cache_cap is not None and req.max_len > self._cache_cap:
+            raise ValueError(
+                f"request {req.req_id}: max_len {req.max_len} exceeds the "
+                f"sliding-window cache ({self._cache_cap}) — the paged "
+                "mirror would lose overwritten positions")
         self.prompt_tokens(req)
         self._states[req.req_id] = self.model.init_decode_state(1,
                                                                 req.max_len)
@@ -183,10 +203,14 @@ class ModelExecutor:
     def _feed(self, req: Request, token: torch.Tensor):
         """One ``decode_step`` on ``token [1]``: ``(logits [V], k, v)``,
         k/v ``[Hkv, dh]`` the first attention layer's K/V written for the
-        input token at its position (views of the cache)."""
+        input token at its position (views of the cache), or the
+        synthetic K/V of that position for a cache-free model."""
         state = self._states[req.req_id]
         pos = state["pos"]
         logits, state = self.model.decode_step(token, state)
+        if self.kv_layer is None:
+            k, v = self._synth._kv(req, pos, 1)
+            return logits[0], k[0], v[0]
         blk = state["blocks"][self.kv_layer]
         return logits[0], blk["k"][0, pos], blk["v"][0, pos]
 

@@ -26,6 +26,8 @@ SHAPES = [  # B/S, Hq, Hkv, dh, page, npps: GQA, MHA, MQA, serving path
     (2, 8, 2, 64, 16, 37),       # npps off a multiple of P: P 2, 19
     (2, 32, 2, 64, 16, 9),       # G = 16, two blocks of heads: P 2, 5
     (4, 40, 8, 128, 16, 9),      # llama4's G = 5: 3 idle rows of 8
+    (4, 32, 8, 120, 16, 65),     # h2o-danube3's dh 120: off mma.sync
+    (4, 16, 16, 64, 16, 65),     # seamless-m4t's MHA, G = 1
 ]
 # head dims whose bf16 rows are 8, 12 and 6 bytes: the async kernel's
 # 8-byte, 4-byte and element-wise copy paths
@@ -500,6 +502,9 @@ FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (2, 150, 150, 8, 2, 120, True, 0, 0),    # dh 120, off the 64-row tile
     (1, 70, 200, 4, 2, 96, True, 32, 130),   # dh 96, window + offset
     (2, 200, 200, 40, 8, 128, True, 0, 0),   # llama4's heads, G = 5
+    (4, 1024, 1024, 32, 8, 160, True, 0, 0), # stablelm: CUDA-core route
+    (4, 1024, 1024, 16, 16, 64, False, 0, 0),  # seamless's encoder
+    (2, 65, 64, 16, 16, 64, False, 0, 0),    # its cross-attention, Sq > Sk
 ]
 
 
@@ -535,19 +540,24 @@ def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
 def test_cuda_flash_attention_route_counters(cuda, dtype, dh, tensor_cores):
     """bf16 at dh <= 128 takes the tensor-core route and raises its
     counter; f32, and bf16 at dh > 128, take the CUDA-core route and do
-    not. Every launch raises the flash counter once."""
+    not (bf16 there raises the bf16 CUDA-core counter). Every launch
+    raises the flash counter once."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_launches, flash_attention_wgmma_launches)
+        flash_attention_cuda_core_bf16_launches, flash_attention_launches,
+        flash_attention_wgmma_launches)
     g = torch.Generator(device=cuda).manual_seed(6)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = rnd(2, 90, 8, dh), rnd(2, 90, 2, dh), rnd(2, 90, 2, dh)
     n0, t0 = flash_attention_launches.n, flash_attention_wgmma_launches.n
+    c0 = flash_attention_cuda_core_bf16_launches.n
     got = flash_attention(q, k, v)
     want = flash_attention(q, k, v, use_kernel=False)
     torch.cuda.synchronize()
     assert flash_attention_launches.n == n0 + 1
     assert flash_attention_wgmma_launches.n == t0 + int(tensor_cores)
+    assert flash_attention_cuda_core_bf16_launches.n == c0 + int(
+        dtype == torch.bfloat16 and not tensor_cores)
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
     else:

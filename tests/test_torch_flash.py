@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_launches  # noqa: E402
-from repro_torch.models.attention import causal_attention  # noqa: E402
+from repro_torch.models.attention import blocked_attention  # noqa: E402
 
 TOL = 2e-5
 
@@ -76,8 +76,22 @@ def test_causal_attention_is_the_reference_full_attention():
     """The model's prefill attention against ``full_attention``."""
     q, k, v = _inputs(2, 9, 9, 4, 2, 16, seed=3)
     want = full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    got = causal_attention(torch.from_numpy(q), torch.from_numpy(k),
-                           torch.from_numpy(v))
+    got = blocked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(9, 9), (7, 20), (21, 6)])
+def test_unmasked_attention_is_the_reference_full_attention(Sq, Sk):
+    """The encoder's and the prefill cross-attention's unmasked attention
+    (``Sq`` and ``Sk`` free) against ``full_attention(causal=False)``,
+    which the reference's encoder-decoder calls for the cross-attention."""
+    q, k, v = _inputs(2, Sq, Sk, 4, 2, 16, seed=Sq * Sk)
+    want = full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=False)
+    got = blocked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
 

@@ -67,32 +67,33 @@ def test_configs_match_the_reference():
 
 @pytest.mark.parametrize("arch", ["xlstm_350m", "phi35_moe_42b"])
 def test_unported_configs_raise_naming_the_roadmap(arch):
-    """An arch in ``PORTED`` (phi3.5-moe since the MoE family's slice)
-    loads the reference's config; any other raises naming the ROADMAP.
-    (The id is kept from when both raised.)"""
-    if tcfg.canonical(arch) in tcfg.PORTED:
-        for get in ("get_config", "get_smoke_config"):
-            assert getattr(tcfg, get)(arch).__dict__ == \
-                getattr(jcfg, get)(arch).__dict__
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcfg.get_config(arch)
-    for other in set(tcfg.ARCHS) - set(tcfg.PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tcfg.get_config(other)
+    """Every arch is ported now: each loads the reference's config, and
+    none raises. (The id is kept from when both raised.)"""
+    assert tcfg.canonical(arch) in tcfg.PORTED
+    for get in ("get_config", "get_smoke_config"):
+        assert getattr(tcfg, get)(arch).__dict__ == \
+            getattr(jcfg, get)(arch).__dict__
+    assert set(tcfg.ARCHS) == set(tcfg.PORTED)
 
 
 def test_unported_layer_kinds_raise():
-    """A GELU MoE still raises, naming item 3 (the families that use
-    GELU); the MoE family itself builds since its slice. (The id is kept
-    from when any MoE outside the hybrid family raised.)"""
+    """A GELU MoE builds since the families that use GELU were ported, and
+    its MoE layer gives the reference's output; the MoE family builds its
+    interleave. (The id is kept from when a GELU MoE raised.)"""
     import dataclasses
+    from repro.models.moe import apply_moe as j_moe
     moe = dataclasses.replace(tcfg.get_smoke_config(ARCH), family="moe",
                               moe_every=2, n_experts=4, top_k=2)
     kinds = [b.kind["ff"] for b in build_model(moe, device=CPU).blocks]
     assert kinds == [k["ff"] for k in moe.layer_kinds()] and "moe" in kinds
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_model(dataclasses.replace(moe, act="gelu"), device=CPU)
+    gelu = build_model(dataclasses.replace(moe, act="gelu"), device=CPU)
+    layer = next(b.ff for b in gelu.blocks if b.kind["ff"] == "moe")
+    x = np.random.default_rng(0).standard_normal((2, 5, 64)).astype(
+        np.float32)
+    want, _ = j_moe({k: jnp.asarray(v.numpy()) for k, v in layer.p().items()},
+                    jnp.asarray(x), 2, act="gelu", dropless=True)
+    np.testing.assert_allclose(layer(torch.from_numpy(x)).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n", [1, 5])

@@ -155,9 +155,20 @@ def test_shared_expert_and_dense_oracle_match_jax(n_shared, k):
 
 
 def test_gelu_moe_still_raises_naming_the_roadmap():
-    p = {n: torch.from_numpy(v) for n, v in _params(8, 8, 4, 0).items()}
-    x = torch.zeros(1, 2, 8)
-    for fn in (lambda: tmoe.apply_moe(p, x, 2, act="gelu"),
-               lambda: tmoe.apply_moe_dense_ref(p, x, 2, act="gelu")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            fn()
+    """A GELU MoE (GeGLU experts, tanh GELU as ``jax.nn.gelu``'s
+    default) and its per-token oracle match the reference's, with and
+    without drops. (The id is kept from when a GELU MoE raised.)"""
+    p = _params(8, 12, 4, 0)
+    x = np.random.default_rng(1).standard_normal((2, 6, 8)).astype(
+        np.float32)
+    jp = {n: jnp.asarray(v) for n, v in p.items()}
+    tp = {n: torch.from_numpy(v) for n, v in p.items()}
+    for cf, dropless in ((1.0, False), (1.25, True)):
+        want, waux = jmoe.apply_moe(jp, jnp.asarray(x), 2, cf, act="gelu",
+                                    dropless=dropless)
+        got, gaux = tmoe.apply_moe(tp, torch.from_numpy(x), 2, cf,
+                                   act="gelu", dropless=dropless)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+        np.testing.assert_allclose(float(gaux), float(waux), atol=TOL)
+    oracle = tmoe.apply_moe_dense_ref(tp, torch.from_numpy(x), 2, act="gelu")
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(want), atol=TOL)
