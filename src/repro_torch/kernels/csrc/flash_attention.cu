@@ -24,23 +24,33 @@
 // Bound: operations -- 4 * dh flops per unmasked (query, key) pair per
 // query head.
 //
-// Tensor-core route (flash_wgmma_kernel; bfloat16, dh <= 128, views a TMA
+// Tensor-core route (flash_wgmma_kernel; bfloat16, dh <= 160, views a TMA
 // tensor map takes). One warpgroup (128 threads) owns 64 query rows. Q and
 // a 2-stage ring of K/V tiles arrive by TMA on mbarriers, each 64-row tile
-// as boxes of 64 columns (128-byte rows, one box for dh <= 64, two above)
-// in the 128-byte swizzle that wgmma reads: 4 TMA instructions a K/V tile,
-// each moving whole 128-byte lines. (Boxes of 8 columns, the unswizzled
-// core-matrix layout, take 32 instructions and 2,048 half-used sectors a
-// tile; on an H100 at the jamba prefill, loading alone then took 0.325 ms
-// of the kernel's 0.332 ms.) dh is padded in shared memory to DHP (64, 80
-// or 128) by the tensor map's zero fill of the columns past dh, and rows
-// past Sq / Sk are zero-filled the same way.
+// as boxes of 64 columns (128-byte rows: one box for dh <= 64, two up to
+// 128, three up to 160) in the 128-byte swizzle that wgmma reads: 2 NB TMA
+// instructions a K/V tile, each moving whole 128-byte lines. (Boxes of 8
+// columns, the unswizzled core-matrix layout, take 32 instructions and
+// 2,048 half-used sectors a tile; on an H100 at the jamba prefill, loading
+// alone then took 0.325 ms of the kernel's 0.332 ms.) dh is padded in
+// shared memory to DHP (64, 80, 128 or 160) by the tensor map's zero fill
+// of the columns past dh (the third box at DHP 160 is half filled: columns
+// 160-191 are zeros no wgmma reads), and rows past Sq / Sk are zero-filled
+// the same way.
+// Up to DHP 128 a block is one warpgroup (Q, two K and two V tiles: 80 KB
+// at DHP 128, two blocks an SM). At DHP 160 the same layout would be 120
+// KB, one 4-warp block an SM; so a block there is two warpgroups over 128
+// query rows that share each K/V stage (two Q tiles, two K and two V
+// tiles: 144 KB, one 8-warp block an SM, half the K/V bytes a query row).
+// Each warpgroup skips the tiles its own 64 rows cannot reach, and meets
+// every stage's release all the same.
 // S = Q . K^T is a wgmma m64n64k16 chain over DHP / 16 steps with both
 // operands K-major in shared memory (bf16 products are exact in the f32
 // accumulator); the scale, the mask and the online softmax run on the
 // accumulator fragment in registers (each thread holds 2 rows x 16 keys;
 // a row's four threads reduce with two xor shuffles). O += P . V takes P
-// from registers and V from shared memory as an MN-major operand. P is
+// from registers and V from shared memory as an MN-major operand
+// (m64nDHPk16: N 160 spans two boxes and half a third). P is
 // carried in three bf16 parts, P_hi + P_mid + P_lo (each the bf16 of what
 // the parts before it leave of p), three wgmmas into the same f32
 // accumulator: the parts hold p to 2^-27 of itself. A bf16 P alone misses
@@ -50,7 +60,7 @@
 // [B, S, H, dh] view of the model is read in place through the tensor
 // maps' strides; the output is stored from registers.
 //
-// CUDA-core route (flash_kernel; float32, and bfloat16 with dh in (128,
+// CUDA-core route (flash_kernel; float32, and bfloat16 with dh in (160,
 // 256] or with a view no tensor map takes). Tensor cores in f32 mean TF32,
 // which misses the 2e-5 f32 limit. 4 threads per query row (32 rows x 4 =
 // 128 threads); a thread computes the scores of its row for keys sub,
@@ -447,18 +457,73 @@ struct WgmmaRS<128> {
   }
 };
 
+template <>
+struct WgmmaRS<160> {
+  // d[64 x 160] (+)= a[64 x 16] (registers) . b[16 x 160] (MN-major: two
+  // whole boxes and half of a third); ``accumulate`` 0 overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[80], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+  }
+};
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Shared memory (NB boxes a tile, box g of a tile at g * BOX_BYTES, row r
-// of a box at r * 128 with its 16-byte chunks swizzled by r % 8): Q, then
-// STAGES K tiles, then STAGES V tiles, then the mbarriers (Q's, then one
-// per stage).
+// Warpgroups a block: two above dh 128, where one warpgroup's Q tile and
+// K/V ring (120 KB at DHP 160) would leave one 4-warp block an SM; two
+// share each K/V stage instead (144 KB, 8 warps an SM)
 template <int DHP>
-__global__ void __launch_bounds__(THREADS, 2)
+struct Warpgroups {
+  static constexpr int value = DHP > 128 ? 2 : 1;
+};
+
+// The key tiles [begin, end) that query rows first..last reach
+__device__ __forceinline__ void tile_range(int first, int last, int Sk,
+                                           int causal, int window,
+                                           int q_offset, int& begin,
+                                           int& end) {
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, last + q_offset + 1);
+  if (window) k_begin = max(0, first + q_offset - window + 1);
+  begin = k_begin / BN;
+  end = k_end > k_begin && last >= first ? (k_end + BN - 1) / BN : begin;
+}
+
+// Shared memory (NB boxes a tile, box g of a tile at g * BOX_BYTES, row r
+// of a box at r * 128 with its 16-byte chunks swizzled by r % 8): NWG Q
+// tiles (one a warpgroup), then STAGES K tiles, then STAGES V tiles, then
+// the mbarriers (Q's, then one per stage). Warpgroup w owns query rows
+// q0 + 64 w .. q0 + 64 w + 63 and computes only the tiles its own rows
+// reach; the block loads the tiles any of its rows reach, and every thread
+// meets every stage's release, so a warpgroup whose rows are all masked
+// (or past Sq) still keeps the ring turning.
+template <int DHP, int NWG = Warpgroups<DHP>::value>
+__global__ void __launch_bounds__(THREADS * NWG, NWG == 1 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, int qperm,
@@ -471,21 +536,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int NO = DHP / 2;                 // O fragment, floats a thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + TILE, sV = sK + STAGES * TILE;
+  const uint32_t sK = sQ + NWG * TILE, sV = sK + STAGES * TILE;
   const uint32_t q_bar = sV + STAGES * TILE;  // then full[s] = q_bar + 8 (1 + s)
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = NWG == 1 ? 0 : tid >> 7, warp = (tid >> 5) & 3;
+  // longest rows first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM * NWG;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const int n_q = min(NWG, (Sq - q0 + BM - 1) / BM);  // Q tiles inside Sq
 
-  // the key tiles this block's mask can reach
-  const int q_last = min(q0 + BM, Sq) - 1;
-  int k_begin = 0, k_end = Sk;
-  if (causal) k_end = min(Sk, q_last + q_offset + 1);
-  if (window) k_begin = max(0, q0 + q_offset - window + 1);
-  const int t_begin = k_begin / BN;
-  const int n_t =
-      k_end > k_begin ? (k_end + BN - 1) / BN - t_begin : 0;
+  // the key tiles the block's rows reach, and those of this warpgroup's
+  int t_begin, t_end;
+  tile_range(q0, min(q0 + BM * NWG, Sq) - 1, Sk, causal, window, q_offset,
+             t_begin, t_end);
+  const int n_t = t_end - t_begin;
+  const int wq0 = q0 + wg * BM, wq_last = min(wq0 + BM, Sq) - 1;
+  int w_begin = t_begin, w_end = t_end;
+  if (NWG > 1)
+    tile_range(wq0, wq_last, Sk, causal, window, q_offset, w_begin, w_end);
 
   if (tid == 0) {
 #pragma unroll
@@ -494,136 +563,141 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0 && n_t > 0) {
-    mbar_expect_tx(q_bar, TILE);
+    mbar_expect_tx(q_bar, n_q * TILE);
 #pragma unroll 1
-    for (int g = 0; g < NB; ++g)
-      tma_box(&qmap, qperm, sQ + g * BOX_BYTES, q_bar, g * 64, q0, h, b);
+    for (int w = 0; w < n_q; ++w)
+      for (int g = 0; g < NB; ++g)
+        tma_box(&qmap, qperm, sQ + w * TILE + g * BOX_BYTES, q_bar, g * 64,
+                q0 + w * BM, h, b);
     for (int s = 0; s < STAGES && s < n_t; ++s)
       load_kv<NB>(&kmap, &vmap, kperm, vperm, sK + s * TILE,
                   sV + s * TILE, q_bar + 8 * (1 + s),
                   (t_begin + s) * BN, hk, b);
   }
 
-  // this thread's rows of the tile: r0 and r0 + 8
+  // this thread's rows of the warpgroup's tile: r0 and r0 + 8
+  const uint32_t wQ = sQ + wg * TILE;
   const int r0 = warp * 16 + (lane >> 2);
-  const int qp0 = q0 + r0 + q_offset, qp1 = qp0 + 8;
+  const int qp0 = wq0 + r0 + q_offset, qp1 = qp0 + 8;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
 
-  if (n_t > 0) mbar_wait(q_bar, 0);
+  if (w_end > w_begin) mbar_wait(q_bar, 0);
 #pragma unroll 1
   for (int i = 0; i < n_t; ++i) {
     const int t = t_begin + i, stage = i % STAGES;
-    mbar_wait(q_bar + 8 * (1 + stage), (i / STAGES) & 1);
     const uint32_t kt = sK + stage * TILE, vt = sV + stage * TILE;
+    if (NWG == 1 || (t >= w_begin && t < w_end)) {
+      mbar_wait(q_bar + 8 * (1 + stage), (i / STAGES) & 1);
 
-    // S = Q . K^T, K-major operands: a k-step of 16 columns starts 32 bytes
-    // into a 128-byte row (a box further every 4 steps); 8-row groups 1 KB
-    // apart
-    float s[32] = {};
-    fence_regs(s);
-    wgmma_fence();
+      // S = Q . K^T, K-major operands: a k-step of 16 columns starts 32 bytes
+      // into a 128-byte row (a box further every 4 steps); 8-row groups 1 KB
+      // apart
+      float s[32] = {};
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DHP / 16; ++kk)
-      wgmma_ss_n64(s,
-                   desc(sQ + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
-                   desc(kt + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
-                   kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
+      for (int kk = 0; kk < DHP / 16; ++kk)
+        wgmma_ss_n64(
+            s, desc(wQ + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
+            desc(kt + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
 
-    // s[j]: row r0 + 8 * ((j >> 1) & 1), key k0 + 8 * (j >> 2) +
-    // 2 * (lane & 3) + (j & 1)
-    const int k0 = t * BN;
-    const bool whole = k0 + BN <= Sk &&
-                       (!causal || k0 + BN - 1 <= q0 + q_offset) &&
-                       (!window || k0 > q_last + q_offset - window);
-    float mt[2] = {NEG_INF, NEG_INF};
+      // s[j]: row r0 + 8 * ((j >> 1) & 1), key k0 + 8 * (j >> 2) +
+      // 2 * (lane & 3) + (j & 1)
+      const int k0 = t * BN;
+      const bool whole = k0 + BN <= Sk &&
+                         (!causal || k0 + BN - 1 <= wq0 + q_offset) &&
+                         (!window || k0 > wq_last + q_offset - window);
+      float mt[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float x = s[j] * sm_scale;
-      if (!whole) {
-        const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-        const int qp = (j & 2) ? qp1 : qp0;
-        const bool in = kp < Sk && (!causal || kp <= qp) &&
-                        (!window || kp > qp - window);
-        x = in ? x : NEG_INF;
+      for (int j = 0; j < 32; ++j) {
+        float x = s[j] * sm_scale;
+        if (!whole) {
+          const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const int qp = (j & 2) ? qp1 : qp0;
+          const bool in = kp < Sk && (!causal || kp <= qp) &&
+                          (!window || kp > qp - window);
+          x = in ? x : NEG_INF;
+        }
+        s[j] = x;
+        mt[(j >> 1) & 1] = fmaxf(mt[(j >> 1) & 1], x);
       }
-      s[j] = x;
-      mt[(j >> 1) & 1] = fmaxf(mt[(j >> 1) & 1], x);
-    }
-    float m_safe[2], corr[2], psum[2] = {0.f, 0.f};
+      float m_safe[2], corr[2], psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m[r], mt[r]);
-      m_safe[r] = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      corr[r] = m[r] <= NEG_INF / 2 ? 0.f : expf(m[r] - m_safe[r]);
-      m[r] = m_new;
-    }
-    // p: a masked score is -1e30, whose expf is exactly 0
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int r = (j >> 1) & 1;
-      s[j] = expf(s[j] - m_safe[r]);
-      psum[r] += s[j];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * corr[r] + psum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) acc[j] *= corr[(j >> 1) & 1];
-
-    // P = P_hi + P_mid + P_lo, each bf16 (P_hi = bf16(p), P_mid =
-    // bf16(p - P_hi), P_lo = bf16(p - P_hi - P_mid); both differences are
-    // exact in f32), as A fragments: keys 16 kc .. 16 kc + 15 are
-    // s[8 kc .. 8 kc + 7], i.e. registers 4 kc .. 4 kc + 3
-    uint32_t ph[16], pm[16], pl[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float x[2] = {s[2 * j], s[2 * j + 1]}, hi[2], mid[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        hi[e] = __bfloat162float(__float2bfloat16(x[e]));
-        x[e] -= hi[e];
-        mid[e] = __bfloat162float(__float2bfloat16(x[e]));
-        x[e] -= mid[e];
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m[r], mt[r]);
+        m_safe[r] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+        corr[r] = m[r] <= NEG_INF / 2 ? 0.f : expf(m[r] - m_safe[r]);
+        m[r] = m_new;
       }
-      ph[j] = pack_bf16(hi[0], hi[1]);
-      pm[j] = pack_bf16(mid[0], mid[1]);
-      pl[j] = pack_bf16(x[0], x[1]);
-    }
-    fence_regs(ph);
-    fence_regs(pm);
-    fence_regs(pl);
-    fence_regs(acc);
-    wgmma_fence();
-    // O += P . V, V the MN-major B operand: a k-step of 16 keys starts 16
-    // rows (2 KB) further, 8-key groups 1 KB apart, 64-column blocks a box
-    // apart; the smallest part first
+      // p: a masked score is -1e30, whose expf is exactly 0
 #pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint64_t dv = desc(vt + kc * 16 * 128, BOX_BYTES, 1024);
-      WgmmaRS<DHP>::mma(acc, pl[4 * kc], pl[4 * kc + 1], pl[4 * kc + 2],
-                        pl[4 * kc + 3], dv, 1);
-      WgmmaRS<DHP>::mma(acc, pm[4 * kc], pm[4 * kc + 1], pm[4 * kc + 2],
-                        pm[4 * kc + 3], dv, 1);
-      WgmmaRS<DHP>::mma(acc, ph[4 * kc], ph[4 * kc + 1], ph[4 * kc + 2],
-                        ph[4 * kc + 3], dv, 1);
+      for (int j = 0; j < 32; ++j) {
+        const int r = (j >> 1) & 1;
+        s[j] = expf(s[j] - m_safe[r]);
+        psum[r] += s[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+        l[r] = l[r] * corr[r] + psum[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) acc[j] *= corr[(j >> 1) & 1];
+
+      // P = P_hi + P_mid + P_lo, each bf16 (P_hi = bf16(p), P_mid =
+      // bf16(p - P_hi), P_lo = bf16(p - P_hi - P_mid); both differences are
+      // exact in f32), as A fragments: keys 16 kc .. 16 kc + 15 are
+      // s[8 kc .. 8 kc + 7], i.e. registers 4 kc .. 4 kc + 3
+      uint32_t ph[16], pm[16], pl[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float x[2] = {s[2 * j], s[2 * j + 1]}, hi[2], mid[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          hi[e] = __bfloat162float(__float2bfloat16(x[e]));
+          x[e] -= hi[e];
+          mid[e] = __bfloat162float(__float2bfloat16(x[e]));
+          x[e] -= mid[e];
+        }
+        ph[j] = pack_bf16(hi[0], hi[1]);
+        pm[j] = pack_bf16(mid[0], mid[1]);
+        pl[j] = pack_bf16(x[0], x[1]);
+      }
+      fence_regs(ph);
+      fence_regs(pm);
+      fence_regs(pl);
+      fence_regs(acc);
+      wgmma_fence();
+      // O += P . V, V the MN-major B operand: a k-step of 16 keys starts 16
+      // rows (2 KB) further, 8-key groups 1 KB apart, 64-column blocks a box
+      // apart; the smallest part first
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint64_t dv = desc(vt + kc * 16 * 128, BOX_BYTES, 1024);
+        WgmmaRS<DHP>::mma(acc, pl[4 * kc], pl[4 * kc + 1], pl[4 * kc + 2],
+                          pl[4 * kc + 3], dv, 1);
+        WgmmaRS<DHP>::mma(acc, pm[4 * kc], pm[4 * kc + 1], pm[4 * kc + 2],
+                          pm[4 * kc + 3], dv, 1);
+        WgmmaRS<DHP>::mma(acc, ph[4 * kc], ph[4 * kc + 1], ph[4 * kc + 2],
+                          ph[4 * kc + 3], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pm);
+      fence_regs(pl);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(ph);
-    fence_regs(pm);
-    fence_regs(pl);
 
     __syncthreads();  // every warp is done with this stage
     if (tid == 0 && i + STAGES < n_t)
@@ -638,7 +712,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     const int r = (j >> 1) & 1;
-    const int qr = q0 + r0 + 8 * r;
+    const int qr = wq0 + r0 + 8 * r;
     const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
     if (qr < Sq && col < dh)
       ob[(long long)qr * oss + col] = __float2bfloat16(acc[j] * inv[r]);
@@ -710,20 +784,28 @@ bool encode_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// dynamic shared memory of the DHP instantiation: NWG Q tiles, STAGES K
+// and V tiles, the mbarriers, and 1 KB to align the swizzled tiles
+template <int DHP>
+size_t smem_bytes() {
+  constexpr int NWG = Warpgroups<DHP>::value;
+  return 1024 + (size_t)(NWG + 2 * STAGES) * ((DHP + 63) / 64) * BOX_BYTES +
+         8 * (STAGES + 1);
+}
+
 template <int DHP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            int qp, int kp, int vp, void* o, int B, int Hq, int Hkv, int Sq,
            int Sk, int dh, int causal, long long osb, long long osh,
            long long oss, int window, int q_offset, float sm_scale,
            cudaStream_t st) {
-  const size_t smem = 1024 +
-                      (size_t)(1 + 2 * STAGES) * ((DHP + 63) / 64) * BOX_BYTES +
-                      8 * (STAGES + 1);
+  constexpr int NWG = Warpgroups<DHP>::value;
+  const size_t smem = smem_bytes<DHP>();
   auto kern = flash_wgmma_kernel<DHP>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const dim3 grid((Sq + BM - 1) / BM, Hq, B);
-  kern<<<grid, THREADS, smem, st>>>(qm, km, vm, qp, kp, vp,
+  const dim3 grid((Sq + BM * NWG - 1) / (BM * NWG), Hq, B);
+  kern<<<grid, THREADS * NWG, smem, st>>>(qm, km, vm, qp, kp, vp,
                                     (__nv_bfloat16*)o, osb, osh, oss,
                                     Hq / Hkv, Sq, Sk, dh, causal, window,
                                     q_offset, sm_scale);
@@ -757,7 +839,7 @@ extern "C" int flash_attention_launch(
                          vs, os, window, q_offset, sm_scale, st);
 }
 
-// The tensor-core route: bf16, 0 < dh <= 128, every base 16-byte aligned
+// The tensor-core route: bf16, 0 < dh <= 160, every base 16-byte aligned
 // and every stride of a dim longer than 1 a multiple of 8 elements (the
 // wrapper checks; a tensor map cuTensorMapEncodeTiled refuses returns
 // cudaErrorInvalidValue). Arguments as flash_attention_launch's.
@@ -768,7 +850,7 @@ extern "C" int flash_attention_wgmma_launch(
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int window, int q_offset,
     float sm_scale, void* stream) {
-  if (dh <= 0 || dh > 128 || Hkv <= 0 || Hq % Hkv)
+  if (dh <= 0 || dh > 160 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaSuccess;
   CUtensorMap qm, km, vm;
@@ -784,6 +866,44 @@ extern "C" int flash_attention_wgmma_launch(
                        st)
   if (dh <= 64) FLASH_TC(64);
   if (dh <= 80) FLASH_TC(80);
-  FLASH_TC(128);
+  if (dh <= 128) FLASH_TC(128);
+  FLASH_TC(160);
 #undef FLASH_TC
+}
+
+// Resources of the tensor-core instantiation that takes head dim ``dh``
+// (0 < dh <= 160): out[0] registers a thread, out[1] local (spill) bytes a
+// thread, out[2] dynamic shared bytes a block, out[3] threads a block,
+// out[4] blocks resident an SM. Returns a cudaError_t.
+extern "C" int flash_attention_wgmma_resources(int dh, int* out) {
+  if (dh <= 0 || dh > 160) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  size_t smem;
+  int threads;
+#define FLASH_RES(D)                                                    \
+  {                                                                      \
+    fn = (const void*)tc::flash_wgmma_kernel<D>;                         \
+    smem = tc::smem_bytes<D>();                                          \
+    threads = tc::THREADS * tc::Warpgroups<D>::value;                    \
+  }
+  if (dh <= 64) FLASH_RES(64)
+  else if (dh <= 80) FLASH_RES(80)
+  else if (dh <= 128) FLASH_RES(128)
+  else FLASH_RES(160)
+#undef FLASH_RES
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = threads;
+  out[4] = blocks;
+  return (int)cudaSuccess;
 }

@@ -14,21 +14,25 @@ would.
 
 Two routes, chosen explicitly by :func:`tensor_core_route`:
 
-* **tensor cores** (bfloat16, ``dh <= 128``, views a TMA tensor map takes:
-  16-byte aligned bases, strides of whole 16-byte units) — one warpgroup
-  per 64 query rows, Q and a 2-stage K/V ring by TMA on mbarriers in
-  128-byte-swizzled boxes of 64 columns, ``wgmma`` for S = Q K^T and for
-  O += P V with ``P`` carried in three bf16 parts (``P_hi + P_mid +
-  P_lo``, three products into one f32 accumulator), which keeps the result
-  within one bf16 ulp of the f32 plain version. Counted by
-  ``flash_attention_wgmma_launches`` as well.
+* **tensor cores** (bfloat16, ``dh <= 160``, views a TMA tensor map takes:
+  16-byte aligned bases, strides of whole 16-byte units) — Q and a 2-stage
+  K/V ring by TMA on mbarriers in 128-byte-swizzled boxes of 64 columns,
+  ``wgmma`` for S = Q K^T and for O += P V with ``P`` carried in three
+  bf16 parts (``P_hi + P_mid + P_lo``, three products into one f32
+  accumulator), which keeps the result within one bf16 ulp of the f32
+  plain version. One warpgroup per 64 query rows up to ``dh`` 128; above
+  (stablelm-12b's 160), two warpgroups per 128 query rows sharing each K/V
+  stage, so that a block's 144 KB of shared memory still keeps 8 warps
+  an SM. Counted by ``flash_attention_wgmma_launches`` as well.
 * **CUDA cores** (float32 — TF32 would miss the 2e-5 f32 limit — and the
-  bf16 inputs the first route does not take, such as ``dh`` in (128, 256])
-  — 32 query rows a block on float32 tiles in shared memory.
+  bf16 inputs the first route does not take: ``dh`` in (160, 256], or
+  views no tensor map takes) — 32 query rows a block on float32 tiles in
+  shared memory.
 
 ``flash_attention_launches`` counts every launch of either route;
 ``flash_attention_cuda_core_bf16_launches`` the bf16 launches of the
-CUDA-core route (stablelm-12b's dh 160).
+CUDA-core route. :func:`tensor_core_resources` reads the registers,
+spill bytes, shared memory and residency of a tensor-core instantiation.
 
 Bound on the H100: operations — ``4 * dh`` flops per unmasked (query,
 key) pair per query head, about 0.035 ms at the bf16 tensor-core peak for
@@ -36,6 +40,8 @@ jamba's 4 x 1024-token prefill.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -53,7 +59,7 @@ _TC_ARGS = _ARGS[:-2] + [_build.VP]
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 256
 #: largest head dim of the tensor-core route
-MAX_TC_HEAD_DIM = 128
+MAX_TC_HEAD_DIM = 160
 
 
 def _check(q, k, v) -> None:
@@ -97,6 +103,22 @@ def tensor_core_route(q, k, v) -> bool:
     Every other input goes to the CUDA-core kernel."""
     return (q.dtype == torch.bfloat16 and q.shape[3] <= MAX_TC_HEAD_DIM
             and _tma_view(q) and _tma_view(k) and _tma_view(v))
+
+
+def tensor_core_resources(dh: int) -> dict:
+    """Registers and local (spill) bytes a thread, dynamic shared bytes,
+    threads a block and blocks resident an SM of the tensor-core
+    instantiation that takes head dim ``dh``, as the CUDA runtime reports
+    them for the current card."""
+    if not 0 < dh <= MAX_TC_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel: head dim {dh} not in "
+                         f"(0, {MAX_TC_HEAD_DIM}]")
+    fn = _build.bind("flash_attention", "flash_attention_wgmma_resources",
+                     [_build.I32, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 5)()
+    _build.check(fn(dh, out), "flash_attention_wgmma_resources")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), out))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,

@@ -502,7 +502,7 @@ FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (2, 150, 150, 8, 2, 120, True, 0, 0),    # dh 120, off the 64-row tile
     (1, 70, 200, 4, 2, 96, True, 32, 130),   # dh 96, window + offset
     (2, 200, 200, 40, 8, 128, True, 0, 0),   # llama4's heads, G = 5
-    (4, 1024, 1024, 32, 8, 160, True, 0, 0), # stablelm: CUDA-core route
+    (4, 1024, 1024, 32, 8, 160, True, 0, 0), # stablelm: tensor cores
     (4, 1024, 1024, 16, 16, 64, False, 0, 0),  # seamless's encoder
     (2, 65, 64, 16, 16, 64, False, 0, 0),    # its cross-attention, Sq > Sk
 ]
@@ -536,10 +536,11 @@ def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dh,tensor_cores", [
     (torch.bfloat16, 128, True), (torch.bfloat16, 80, True),
-    (torch.float32, 128, False), (torch.bfloat16, 160, False)])
+    (torch.float32, 128, False), (torch.bfloat16, 160, True),
+    (torch.bfloat16, 192, False)])
 def test_cuda_flash_attention_route_counters(cuda, dtype, dh, tensor_cores):
-    """bf16 at dh <= 128 takes the tensor-core route and raises its
-    counter; f32, and bf16 at dh > 128, take the CUDA-core route and do
+    """bf16 at dh <= 160 takes the tensor-core route and raises its
+    counter; f32, and bf16 at dh > 160, take the CUDA-core route and do
     not (bf16 there raises the bf16 CUDA-core counter). Every launch
     raises the flash counter once."""
     from repro_torch.kernels.flash_attention import flash_attention
@@ -562,6 +563,85 @@ def test_cuda_flash_attention_route_counters(cuda, dtype, dh, tensor_cores):
         assert (got - want).abs().max().item() <= 2e-5
     else:
         assert _bf16_ulp_ratio(got, want) <= 1.0
+
+
+FLASH_160_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
+    (2, 200, 200, 8, 2, 160, True, 0, 0),    # Sq off the 64 / 128-row tiles
+    (1, 70, 333, 8, 1, 160, True, 0, 263),   # Sq != Sk, decode-tail offset
+    (2, 300, 300, 16, 4, 160, True, 100, 0),  # sliding window
+    (1, 129, 250, 32, 4, 160, True, 40, 121),  # window + offset, G 8
+    (2, 65, 190, 8, 2, 160, False, 0, 0),    # no mask, ragged tiles
+    (1, 200, 200, 4, 1, 160, True, 0, -100),  # first 100 rows masked: a
+                                              # whole warpgroup of block 0
+    (1, 150, 64, 4, 1, 160, True, 16, 60),   # the window masks rows 19+:
+                                              # block 0's second warpgroup
+    (2, 130, 130, 8, 2, 136, True, 0, 0),    # dh 136 in the 160 tiles
+    (1, 256, 256, 8, 2, 144, True, 0, 0),    # dh 144, whole 128-row tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset",
+                         FLASH_160_CASES)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_attention_dh160_on_the_tensor_cores(
+        cuda, B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, layout):
+    """bf16 with dh in (128, 160] on the tensor-core route (two warpgroups
+    a block) within one bf16 ulp of the plain version, in the model's
+    strided ``[B, S, H, dh]`` view and in ``[B, H, S, dh]``; fully masked
+    rows are 0."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rnd = lambda b, s_, h: torch.randn((b, s_, h, dh), generator=g,
+                                       device=cuda).to(torch.bfloat16)
+    q, k, v = rnd(B, Sq, Hq), rnd(B, Sk, Hkv), rnd(B, Sk, Hkv)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    else:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fk.tensor_core_route(q, k, v)
+    t0 = fk.flash_attention_wgmma_launches.n
+    c0 = fk.flash_attention_cuda_core_bf16_launches.n
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_wgmma_launches.n == t0 + 1
+    assert fk.flash_attention_cuda_core_bf16_launches.n == c0
+    assert got.stride() == q.stride()
+    assert _bf16_ulp_ratio(got, want) <= 1.0
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_dh160_resources(cuda):
+    """The dh-160 instantiation spills nothing and keeps one block of two
+    warpgroups an SM; dh 128's keeps two of one."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    wide, narrow = fk.tensor_core_resources(160), fk.tensor_core_resources(
+        128)
+    assert wide["local_bytes"] == 0 and narrow["local_bytes"] == 0
+    assert (wide["threads"], wide["blocks_per_sm"]) == (256, 1)
+    assert (narrow["threads"], narrow["blocks_per_sm"]) == (128, 2)
+    assert wide["shared_bytes"] == 1024 + 6 * 3 * 8192 + 24
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_dh160_launch_failure_raises(cuda,
+                                                          monkeypatch):
+    """A dh-160 launch whose C entry point returns an error raises: no
+    fallback to the plain version or to the CUDA-core route, and no
+    counter moves."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t = torch.ones((1, 4, 70, 160), device=cuda, dtype=torch.bfloat16)
+    n0 = dict(_build.counts())
+    monkeypatch.setattr(_build, "launch", lambda fn, index, *args: 1)
+    with pytest.raises(RuntimeError, match="flash_attention_wgmma_launch"):
+        fk.flash_attention_fwd(t, t[:, :2], t[:, :2])
+    assert _build.counts() == n0
 
 
 @pytest.mark.cuda

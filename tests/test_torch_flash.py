@@ -4,8 +4,10 @@ The port's plain version (what the CPU runs, and what the CUDA kernel is
 held against on the card) against the reference's ``flash_attention_ref``
 in the kernel layout, and against its Pallas kernel in interpret mode in
 the model layout, over causal, sliding-window and ``q_offset`` masks, GQA
-and MHA, head dims 64 and 16, and Sq != Sk. Inputs from a numpy seed;
-tolerance 2e-5 (f32, the reference's kernel-vs-oracle bound).
+and MHA, head dims 160, 64 and 16, and Sq != Sk. Inputs from a numpy
+seed; tolerance 2e-5 (f32, the reference's kernel-vs-oracle bound). And
+the route rule (``tensor_core_route``) on CPU tensors, which it reads
+only for dtype, head dim, base alignment and strides.
 """
 
 import jax.numpy as jnp
@@ -20,8 +22,8 @@ from repro.kernels.flash_attention.ref import \
 from repro.models.attention import full_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
-from repro_torch.kernels.flash_attention.kernel import \
-    flash_attention_launches  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_launches, tensor_core_route)
 from repro_torch.models.attention import blocked_attention  # noqa: E402
 
 TOL = 2e-5
@@ -33,6 +35,7 @@ CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (1, 8, 40, 4, 1, 64, True, 12, 32),
     (2, 12, 20, 4, 2, 16, False, 0, 0),
     (1, 16, 16, 2, 1, 16, False, 6, 0),
+    (1, 12, 20, 8, 2, 160, True, 0, 8),     # stablelm-12b's dh 160, GQA 4
 ]
 
 
@@ -101,3 +104,35 @@ def test_fully_masked_rows_are_zero():
                _inputs(1, 4, 8, 2, 1, 16, seed=4))
     o = flash_attention_ref(q, k, v, causal=True, q_offset=-2)
     assert not o[:, :, :2].any() and o[:, :, 2:].abs().sum() > 0
+
+
+def _bhsd(dh, dtype=torch.bfloat16, pad=0, offset=0):
+    """q [1, 4, 8, dh] and k / v [1, 2, 8, dh] as views of buffers whose
+    rows are ``dh + pad`` wide, starting ``offset`` elements in."""
+    def view(h):
+        buf = torch.zeros(offset + h * 8 * (dh + pad), dtype=dtype)
+        return buf[offset:].view(1, h, 8, dh + pad)[..., :dh]
+    return view(4), view(2), view(2)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128, 136, 160])
+def test_tensor_core_route_takes_bf16_up_to_dh_160(dh):
+    assert tensor_core_route(*_bhsd(dh))
+
+
+@pytest.mark.parametrize("dh", [161, 192, 256])
+def test_tensor_core_route_leaves_bf16_past_dh_160(dh):
+    assert not tensor_core_route(*_bhsd(dh))
+
+
+def test_tensor_core_route_leaves_float32():
+    assert not tensor_core_route(*_bhsd(160, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("pad,offset", [(4, 0), (0, 4)])
+def test_tensor_core_route_leaves_views_no_tensor_map_takes(pad, offset):
+    """Rows 164 elements apart (328 bytes, not whole 16-byte units), or a
+    base 8 bytes off a 16-byte boundary."""
+    q, k, v = _bhsd(160, pad=pad, offset=offset)
+    assert q.data_ptr() % 16 or q.stride(2) % 8
+    assert not tensor_core_route(q, k, v)
