@@ -3,7 +3,9 @@
 Counterpart of ``src/repro/kernels/flash_attention/ref.py``: the same
 ``[B, H, S, dh]`` contract as the kernel, scores in float32 over K/V
 repeated to the query heads, causal / sliding-window masks placed by
-``q_offset``, fully masked rows 0 (not NaN).
+``q_offset``, fully masked rows 0 (not NaN). And the plain version of the
+split route's pass, :func:`split_bf16x3_ref`, which only the tests and the
+chip smoke call.
 """
 
 from __future__ import annotations
@@ -36,3 +38,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask, p, torch.zeros((), device=p.device))
     return torch.einsum("bhqs,bhsd->bhqd", p, vx).to(q.dtype)
+
+
+def split_bf16x3_ref(x: torch.Tensor) -> torch.Tensor:
+    """x float32 -> ``[3, *x.shape]`` bfloat16: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest even.
+    Both differences are exact in float32, and hi + mid + lo is x to its
+    last bit for normal x."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])

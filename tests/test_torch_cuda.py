@@ -534,31 +534,42 @@ def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dh,tensor_cores", [
-    (torch.bfloat16, 128, True), (torch.bfloat16, 80, True),
-    (torch.float32, 128, False), (torch.bfloat16, 160, True),
-    (torch.bfloat16, 192, False)])
-def test_cuda_flash_attention_route_counters(cuda, dtype, dh, tensor_cores):
-    """bf16 at dh <= 160 takes the tensor-core route and raises its
-    counter; f32, and bf16 at dh > 160, take the CUDA-core route and do
-    not (bf16 there raises the bf16 CUDA-core counter). Every launch
-    raises the flash counter once."""
+@pytest.mark.parametrize("dtype,dh,which", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.float32, 128, "split_f32"), (torch.bfloat16, 160, "wgmma"),
+    (torch.bfloat16, 192, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "split_f32"),
+    (torch.float32, 160, "cuda_core"), (torch.bfloat16, 37, "cuda_core"),
+    (torch.float32, 37, "cuda_core")])
+def test_cuda_flash_attention_route_counters(cuda, dtype, dh, which):
+    """Each input takes the route ``route`` names and raises that route's
+    counter and no other: bf16 up to dh 256 ``wgmma``; f32 up to dh 128
+    the split route (three ``split_bf16x3`` passes, then one attention
+    launch); f32 at dh 160, and dh 37 (rows of 74 or 148 bytes, which no
+    tensor map takes) the CUDA cores. Every launch raises the flash
+    counter once."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_cuda_core_bf16_launches, flash_attention_launches,
-        flash_attention_wgmma_launches)
+    from repro_torch.kernels.flash_attention import kernel as fk
     g = torch.Generator(device=cuda).manual_seed(6)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = rnd(2, 90, 8, dh), rnd(2, 90, 2, dh), rnd(2, 90, 2, dh)
-    n0, t0 = flash_attention_launches.n, flash_attention_wgmma_launches.n
-    c0 = flash_attention_cuda_core_bf16_launches.n
+    assert fk.route(*(t.transpose(1, 2) for t in (q, k, v))) == which
+    n0 = _build.counts()
     got = flash_attention(q, k, v)
     want = flash_attention(q, k, v, use_kernel=False)
     torch.cuda.synchronize()
-    assert flash_attention_launches.n == n0 + 1
-    assert flash_attention_wgmma_launches.n == t0 + int(tensor_cores)
-    assert flash_attention_cuda_core_bf16_launches.n == c0 + int(
-        dtype == torch.bfloat16 and not tensor_cores)
+    n1 = _build.counts()
+    moved = {c: n1[c] - n0.get(c, 0) for c in n1 if n1[c] != n0.get(c, 0)}
+    assert fk.route_counter(which, dtype).name == {
+        "wgmma": "flash_attention_wgmma",
+        "split_f32": "flash_attention_split_f32",
+        "cuda_core": "flash_attention_cuda_core_" + (
+            "bf16" if dtype == torch.bfloat16 else "f32")}[which]
+    assert moved == {"flash_attention": 1,
+                     fk.route_counter(which, dtype).name: 1,
+                     **({"split_bf16x3": 3} if which == "split_f32"
+                        else {})}
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
     else:
@@ -642,6 +653,157 @@ def test_cuda_flash_attention_dh160_launch_failure_raises(cuda,
     with pytest.raises(RuntimeError, match="flash_attention_wgmma_launch"):
         fk.flash_attention_fwd(t, t[:, :2], t[:, :2])
     assert _build.counts() == n0
+
+
+FLASH_192_256_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
+    (2, 200, 200, 8, 2, 192, True, 0, 0),    # DHP 192, Sq off the tiles
+    (1, 70, 333, 8, 1, 176, True, 0, 263),   # dh 176 in the 192 tiles,
+                                              # decode-tail offset
+    (2, 300, 300, 16, 4, 200, True, 100, 0),  # dh 200 in the 256 tiles,
+                                              # sliding window
+    (1, 129, 250, 32, 4, 256, True, 40, 121),  # window + offset, G 8
+    (2, 65, 190, 8, 2, 256, False, 0, 0),    # no mask, ragged tiles
+    (1, 200, 200, 4, 1, 192, True, 0, -100),  # first 100 rows masked: a
+                                              # whole warpgroup of block 0
+    (1, 200, 200, 4, 1, 256, True, 0, -100),  # ... at DHP 256
+    (1, 150, 64, 4, 1, 192, True, 16, 60),   # the window masks rows 19+,
+                                              # all past Sk: block 0's
+                                              # second warpgroup
+    (1, 150, 64, 4, 1, 256, True, 16, 60),   # ... at DHP 256
+    (2, 512, 512, 16, 4, 192, True, 0, 0),   # the smoke's dh-192 row
+    (2, 512, 512, 16, 4, 256, True, 0, 0),   # ... and its dh-256 row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset",
+                         FLASH_192_256_CASES)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_attention_dh192_256_on_the_tensor_cores(
+        cuda, B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, layout):
+    """bf16 with dh in (160, 256] on ``wgmma`` (the DHP-192 and DHP-256
+    instantiations, two warpgroups a block) within
+    one bf16 ulp of the plain version, in the model's strided ``[B, S, H,
+    dh]`` view and in ``[B, H, S, dh]``; fully masked rows are 0; the bf16
+    CUDA-core counter does not move."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda b, s_, h: torch.randn((b, s_, h, dh), generator=g,
+                                       device=cuda).to(torch.bfloat16)
+    q, k, v = rnd(B, Sq, Hq), rnd(B, Sk, Hkv), rnd(B, Sk, Hkv)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    else:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fk.route(q, k, v) == "wgmma"
+    t0 = fk.flash_attention_wgmma_launches.n
+    c0 = fk.flash_attention_cuda_core_bf16_launches.n
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_wgmma_launches.n == t0 + 1
+    assert fk.flash_attention_cuda_core_bf16_launches.n == c0
+    assert got.stride() == q.stride()
+    assert _bf16_ulp_ratio(got, want) <= 1.0
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dtype,shared,threads", [
+    (192, torch.bfloat16, 1024 + 6 * 3 * 8192 + 24, 256),
+    (256, torch.bfloat16, 1024 + 6 * 4 * 8192 + 24, 256),
+    (128, torch.float32, 1024 + 2 * 3 * 2 * 8192 + 4 * 3 * 2 * 4096 + 24,
+     256),
+    (64, torch.float32, 1024 + 3 * 8192 + 4 * 3 * 4096 + 24, 128)])
+def test_cuda_flash_attention_wide_and_split_resources(cuda, dh, dtype,
+                                                       shared, threads):
+    """The DHP-192 / 256 bf16 instantiations and the split route's spill
+    nothing, with the shared bytes of their layouts: two Q tiles and two
+    stages of K and V, 64-key tiles of 64-column boxes (bf16), or three
+    parts of each, K/V tiles of 32 keys (f32); the two-warpgroup blocks
+    one an SM, the split route's DHP 64 (one warpgroup) at least two."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    res = fk.tensor_core_resources(dh, dtype)
+    assert res["local_bytes"] == 0
+    assert res["shared_bytes"] == shared and res["threads"] == threads
+    if threads == 256:
+        assert res["blocks_per_sm"] == 1
+    else:
+        assert res["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", [
+    ((4, 32, 1024, 128), "bhsd"), ((2, 5, 77, 64), "bshd"),
+    ((1, 3, 33, 37), "bhsd"), ((2, 4, 19, 120), "bshd")])
+def test_cuda_split_bf16x3_bitwise(cuda, shape, layout):
+    """The split pass bitwise equal to ``split_bf16x3_ref`` (bf16 bits
+    compared as int16), on contiguous ``[B, H, S, dh]`` and the model's
+    strided view, dh off a multiple of 8 (37: rows padded to 40); the
+    parts sum back to x."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import split_bf16x3_ref
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, H, S, dh = shape
+    x = torch.randn((B, S, H, dh) if layout == "bshd" else shape,
+                    generator=g, device=cuda) * 3
+    if layout == "bshd":
+        x = x.transpose(1, 2)
+    n0 = fk.split_bf16x3_launches.n
+    got = fk.split_bf16x3(x)
+    want = split_bf16x3_ref(x)
+    torch.cuda.synchronize()
+    assert fk.split_bf16x3_launches.n == n0 + 1
+    assert got.shape == want.shape == (3,) + shape
+    assert got.data_ptr() % 16 == 0 and got.stride(3) % 8 == 0
+    assert torch.equal(got.contiguous().view(torch.int16),
+                       want.contiguous().view(torch.int16))
+    hi, mid, lo = got.float()
+    assert torch.equal((hi + mid) + lo, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [192, 256])
+def test_cuda_flash_attention_dh192_256_launch_failure_raises(cuda, dh,
+                                                              monkeypatch):
+    """A dh-192 / 256 launch whose C entry point returns an error raises:
+    no fallback to the CUDA-core route or the plain version, and no
+    counter moves."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t = torch.ones((1, 4, 70, dh), device=cuda, dtype=torch.bfloat16)
+    n0 = dict(_build.counts())
+    monkeypatch.setattr(_build, "launch", lambda fn, index, *args: 1)
+    with pytest.raises(RuntimeError, match="flash_attention_wgmma_launch"):
+        fk.flash_attention_fwd(t, t[:, :2], t[:, :2])
+    assert _build.counts() == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("failing", ["split_bf16x3_launch",
+                                     "flash_attention_split_f32_launch"])
+def test_cuda_flash_attention_split_launch_failure_raises(cuda, failing,
+                                                          monkeypatch):
+    """On the split route a failed split pass or a failed attention launch
+    raises, naming its entry point: no fallback to the CUDA-core route or
+    the plain version. No flash counter moves; the split counter counts
+    only the passes that launched (none, or all three)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t = torch.ones((1, 4, 70, 128), device=cuda)
+    n0 = dict(_build.counts())
+    real = _build.launch
+    monkeypatch.setattr(_build, "launch", lambda fn, index, *args: 1 if
+                        fn.__name__ == failing else real(fn, index, *args))
+    with pytest.raises(RuntimeError, match=failing):
+        fk.flash_attention_fwd(t, t[:, :2], t[:, :2])
+    torch.cuda.synchronize()
+    n1 = _build.counts()
+    split = 3 if failing == "flash_attention_split_f32_launch" else 0
+    assert n1 == dict(n0, split_bf16x3=n0.get("split_bf16x3", 0) + split)
 
 
 @pytest.mark.cuda

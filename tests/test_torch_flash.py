@@ -6,8 +6,12 @@ in the kernel layout, and against its Pallas kernel in interpret mode in
 the model layout, over causal, sliding-window and ``q_offset`` masks, GQA
 and MHA, head dims 160, 64 and 16, and Sq != Sk. Inputs from a numpy
 seed; tolerance 2e-5 (f32, the reference's kernel-vs-oracle bound). And
-the route rule (``tensor_core_route``) on CPU tensors, which it reads
-only for dtype, head dim, base alignment and strides.
+the route rule (``route``, ``tensor_core_route``, ``tile_width``) on
+CPU tensors, which it reads only for dtype, head dim, base alignment and
+strides. And the split route's arithmetic on the CPU: its plain split
+(``split_bf16x3_ref``) sums back to x bitwise, and an emulation of its six
+part products (bf16 parts, float32 matmuls, 32-key tiles, the online
+softmax, P in three parts) holds the reference to 2e-5 at every case.
 """
 
 import jax.numpy as jnp
@@ -23,7 +27,9 @@ from repro.models.attention import full_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_launches, tensor_core_route)
+    flash_attention_launches, route, tensor_core_route, tile_width)
+from repro_torch.kernels.flash_attention.ref import \
+    split_bf16x3_ref  # noqa: E402
 from repro_torch.models.attention import blocked_attention  # noqa: E402
 
 TOL = 2e-5
@@ -36,6 +42,8 @@ CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
     (2, 12, 20, 4, 2, 16, False, 0, 0),
     (1, 16, 16, 2, 1, 16, False, 6, 0),
     (1, 12, 20, 8, 2, 160, True, 0, 8),     # stablelm-12b's dh 160, GQA 4
+    (1, 12, 40, 8, 2, 192, True, 16, 20),   # dh 192, GQA 4, window + offset
+    (2, 10, 24, 4, 1, 256, True, 0, 14),    # dh 256, GQA 4, offset
 ]
 
 
@@ -122,7 +130,14 @@ def test_tensor_core_route_takes_bf16_up_to_dh_160(dh):
 
 @pytest.mark.parametrize("dh", [161, 192, 256])
 def test_tensor_core_route_leaves_bf16_past_dh_160(dh):
-    assert not tensor_core_route(*_bhsd(dh))
+    """Past dh 160 bf16 stays on ``wgmma`` up to 256: dh 161 and 192 on
+    the DHP-192 instantiation, 256 on DHP 256, on rows padded to whole
+    16-byte units. A dh-161 row packed tight (322 bytes) is a view no
+    tensor map takes, and stays on the CUDA cores."""
+    q, k, v = _bhsd(dh, pad=-dh % 8)
+    assert route(q, k, v) == "wgmma" and tensor_core_route(q, k, v)
+    assert tile_width("wgmma", dh) == {161: 192, 192: 192, 256: 256}[dh]
+    assert route(*_bhsd(dh)) == ("cuda_core" if dh % 8 else "wgmma")
 
 
 def test_tensor_core_route_leaves_float32():
@@ -136,3 +151,97 @@ def test_tensor_core_route_leaves_views_no_tensor_map_takes(pad, offset):
     q, k, v = _bhsd(160, pad=pad, offset=offset)
     assert q.data_ptr() % 16 or q.stride(2) % 8
     assert not tensor_core_route(q, k, v)
+
+
+@pytest.mark.parametrize("dh,dhp", [(16, 64), (64, 64), (80, 128),
+                                    (120, 128), (128, 128)])
+def test_split_route_takes_float32_up_to_dh_128(dh, dhp):
+    q, k, v = _bhsd(dh, dtype=torch.float32)
+    assert route(q, k, v) == "split_f32" and tensor_core_route(q, k, v)
+    assert tile_width("split_f32", dh) == dhp
+
+
+@pytest.mark.parametrize("dh", [136, 160, 256])
+def test_split_route_leaves_float32_past_dh_128(dh):
+    """stablelm's dh 160 in f32 (only its f32 check launches it) and
+    anything wider stay on the CUDA cores."""
+    assert route(*_bhsd(dh, dtype=torch.float32)) == "cuda_core"
+
+
+@pytest.mark.parametrize("pad,offset", [(2, 0), (0, 2)])
+def test_split_route_leaves_views_no_tensor_map_takes(pad, offset):
+    """f32 rows 130 elements apart (520 bytes, not whole 16-byte units), or
+    a base 8 bytes off a 16-byte boundary."""
+    q, k, v = _bhsd(128, dtype=torch.float32, pad=pad, offset=offset)
+    assert q.data_ptr() % 16 or q.stride(2) * 4 % 16
+    assert route(q, k, v) == "cuda_core"
+    assert not tensor_core_route(q, k, v)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-20, 3e20])
+def test_split_bf16x3_ref_parts_sum_back_bitwise(scale):
+    """hi + mid + lo (summed from the top) is x to its last bit, on
+    seeded normal float32 inputs at three magnitudes; hi and mid are the
+    roundings of x and of x - hi."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 3, 50, 24)).astype(np.float32)) * scale
+    parts = split_bf16x3_ref(x)
+    assert parts.shape == (3,) + x.shape and parts.dtype == torch.bfloat16
+    hi, mid, lo = parts.float()
+    assert torch.equal((hi + mid) + lo, x)
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    assert torch.equal(mid, (x - hi).to(torch.bfloat16).float())
+
+
+def _split_scheme(q, k, v, causal, window, q_offset, bn=32):
+    """The split route's arithmetic, emulated in float32 on the CPU: q, k,
+    v [B,H,S,dh] as three bf16 parts each; per tile of ``bn`` keys S =
+    sum of Q_a K_b^T over a + b <= 2, scaled and masked, the online
+    softmax, then O += sum of P_a V_b over the same pairs, P split as the
+    kernel splits it; o = acc / max(l, 1e-30)."""
+    B, Hq, Sq, dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    pairs = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]
+    qp, kp, vp = (split_bf16x3_ref(t).float() for t in (q, k, v))
+    kp, vp = (t.repeat_interleave(G, dim=2) for t in (kp, vp))
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, dh))
+    for k0 in range(0, Sk, bn):
+        ks = slice(k0, min(k0 + bn, Sk))
+        s = sum(qp[a] @ kp[b][:, :, ks].transpose(-1, -2) for a, b in pairs)
+        s = s / dh ** 0.5
+        kpos = torch.arange(k0, min(k0 + bn, Sk))[None, :]
+        ok = torch.ones_like(s[0, 0], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new <= -5e29, torch.tensor(0.0), m_new)
+        corr = torch.where(m <= -5e29, torch.tensor(0.0),
+                           torch.exp(m - m_safe))
+        p = torch.exp(s - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        pp = split_bf16x3_ref(p).float()
+        acc = acc * corr + sum(pp[a] @ vp[b][:, :, ks] for a, b in pairs)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset", CASES)
+def test_split_scheme_matches_reference_ref(B, Sq, Sk, Hq, Hkv, dh, causal,
+                                            window, q_offset):
+    """The six-product scheme holds the f32 limit before any card runs it:
+    the emulation against the reference's ``flash_attention_ref``."""
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in
+               _inputs(B, Sq, Sk, Hq, Hkv, dh, seed=Sq + Sk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    got = _split_scheme(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
