@@ -1,4 +1,5 @@
-// Flash-attention forward (GQA prefill) for Hopper: three routes.
+// Flash-attention forward (GQA prefill) for Hopper: two routes, both on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel flash_attention_fwd (_flash_kernel) of
 // src/repro/kernels/flash_attention/kernel.py: q [B, Hq, Sq, dh] against
@@ -9,8 +10,8 @@
 //
 // The TPU kernel walks KV blocks on a sequential grid axis with (m, l, acc)
 // in VMEM scratch. Here one block owns a tile of query rows of one (batch,
-// query head) and loops over the KV tiles (64 keys; 32 on the split
-// route) its mask can reach;
+// query head) and loops over the KV tiles (64 keys; 32 or 16 on the
+// split route) its mask can reach;
 // the loop takes the place of the sequential grid axis, and the
 // online-softmax state stays in registers. Tiles wholly outside the mask
 // are skipped: the reference's update leaves (m, l, acc) unchanged on such
@@ -25,19 +26,19 @@
 // Bound: operations -- 4 * dh flops per unmasked (query, key) pair per
 // query head.
 //
-// Tensor-core route (flash_wgmma_kernel<DHP, 1>; bfloat16, dh <= 256, views
-// a TMA tensor map takes). One warpgroup (128 threads) owns 64 query rows.
-// Q and a 2-stage ring of K/V tiles arrive by TMA on mbarriers, each
-// 64-row tile as boxes of 64 columns (128-byte rows: one box for dh <= 64,
-// two up to 128, three up to 192, four up to 256) in the 128-byte swizzle
-// that wgmma reads: 2 NB TMA instructions a K/V tile, each moving whole
-// 128-byte lines. (Boxes of 8 columns, the unswizzled core-matrix layout,
-// take 32 instructions and 2,048 half-used sectors a tile; on an H100 at
-// the jamba prefill, loading alone then took 0.325 ms of the kernel's 0.332
-// ms.) dh is padded in shared memory to DHP (64, 80, 128, 160, 192 or 256;
-// the wrapper picks it) by the tensor map's zero fill of the columns past
-// dh (the third box at DHP 160 is half filled: columns 160-191 are zeros no
-// wgmma reads), and rows past Sq / Sk are zero-filled the same way.
+// bf16 route (flash_wgmma_kernel<DHP, 1>; bfloat16, dh <= 256). One warpgroup
+// (128 threads) owns 64 query rows. Q and a 2-stage ring of K/V tiles arrive
+// by TMA on mbarriers, each 64-row tile as boxes of 64 columns (128-byte
+// rows: one box for dh <= 64, two up to 128, three up to 192, four up to 256)
+// in the 128-byte swizzle that wgmma reads: 2 NB TMA instructions a K/V tile,
+// each moving whole 128-byte lines. (Boxes of 8 columns, the unswizzled
+// core-matrix layout, take 32 instructions and 2,048 half-used sectors a
+// tile; on an H100 at the jamba prefill, loading alone then took 0.325 ms of
+// the kernel's 0.332 ms.) dh is padded in shared memory to DHP (64, 80, 128,
+// 160, 192 or 256; the wrapper picks it) by the tensor map's zero fill of the
+// columns past dh (the third box at DHP 160 is half filled: columns 160-191
+// are zeros no wgmma reads), and rows past Sq / Sk are zero-filled the same
+// way.
 // Up to DHP 128 a block is one warpgroup (Q, two K and two V tiles: 80 KB
 // at DHP 128, two blocks an SM). Above, the same layout would leave one
 // 4-warp block an SM (120 KB at DHP 160); so a block there is two
@@ -64,30 +65,33 @@
 // and spills nothing (building, issuing and waiting on one part at a time
 // spilled there, and took more registers at DHP 192). The strided
 // [B, S, H, dh] view of the model is read in place through the tensor
-// maps' strides; the output is stored from registers.
+// maps' strides; the output is stored from registers. An operand no tensor
+// map takes (a base off a 16-byte boundary, or a stride that is not whole
+// 16-byte units) is first copied by the pack pass (split_kernel<bf16, 1>)
+// into a contiguous [B, H, S, dhp] buffer, dhp = dh rounded up to 8, the
+// columns past dh zero; only such operands are packed, and the attention
+// kernel is the same. Bound of the pack: bytes, each element read once and
+// written once.
 //
-// Split route (split_bf16x3_kernel, then flash_wgmma_kernel<DHP, 3>;
-// float32, dh <= 128, views a TMA tensor map takes). TF32 would miss the
+// Split route (split_kernel<float, 3>, then flash_wgmma_kernel<DHP, 3>;
+// float32, dh <= 256, any view with dh contiguous). TF32 would miss the
 // 2e-5 f32 limit, and its wgmma takes B only K-major, so V would need a
 // transpose. Instead one pass writes each of q, k and v as three bf16
 // parts (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); hi +
 // mid + lo is x to its last bit for normal x) into a contiguous [3, B, H,
-// S, dhp] buffer, K and V once a KV head; the attention kernel then reads
-// the parts as batches p * B + b of the same tensor maps. S = sum of
-// Q_a K_b^T and O += sum of P_a V_b over the six part pairs a + b <= 2,
-// smallest first (the dropped ones are at most about 2^-24 of the product;
-// each bf16 product is exact in the f32 accumulator). Three parts of Q, K
-// and V at 64 keys a tile would need 240 KB at DHP 128, so K/V tiles are 32
-// keys: two warpgroups' Q parts (96 KB) and two stages (96 KB) fit one
-// 8-warp block an SM at DHP 128; DHP 64 is one warpgroup a block.
-//
-// CUDA-core route (flash_kernel; float32 with dh in (128, 256], and either
-// dtype on a view no tensor map takes). 4 threads per query row (32 rows x
-// 4 = 128 threads); a thread computes the scores of its row for keys sub,
-// sub + 4, ... of the tile, the row's max and sum go through two xor
-// shuffles among the four, the probabilities pass through shared memory,
-// and the thread accumulates output columns sub, sub + 4, ... (C of them).
-// Q and K tiles are stored as f32 with a row pitch of dh + 1.
+// S, dhp] buffer, K and V once a KV head, reading x through its strides;
+// the attention kernel then reads the parts as batches p * B + b of the
+// same tensor maps. S = sum of Q_a K_b^T and O += sum of P_a V_b over the
+// six part pairs a + b <= 2, smallest first (the dropped ones are at most
+// about 2^-24 of the product; each bf16 product is exact in the f32
+// accumulator). Three parts of Q, K and V at 64 keys a tile would need 240
+// KB at DHP 128, so K/V tiles are 32 keys there: two warpgroups' Q parts
+// (96 KB) and two stages (96 KB) fit one 8-warp block an SM; DHP 64 is one
+// warpgroup a block. Above DHP 128 a block is one warpgroup (232,448 bytes
+// a block at most): on 32-key tiles at DHP 192 (72 KB of Q parts, 144 KB
+// of stages; two warpgroups on 16-key tiles fit as well, but their
+// m64n16k16 S products ran slower), on 16-key tiles at DHP 256 (S on
+// m64n16k16, 2 KB TMA boxes: two whole swizzle atoms; 96 KB and 96 KB).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -97,190 +101,17 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int THREADS = 128;
-constexpr int BQ = 32;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int KPT = BK / 4;  // scores per thread per tile
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-struct Strides {
-  long long b, h, s;
-};
-
-__host__ __device__ inline size_t smem_floats(int dh) {
-  return (size_t)BQ * (dh + 1) + (size_t)BK * (dh + 1) + (size_t)BK * dh +
-         (size_t)BQ * (BK + 1);
-}
-
-template <typename T, int C>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Hq, int G,
-             int Sq, int Sk, int dh, int causal, Strides qs, Strides ks,
-             Strides vs, Strides os, int window, int q_offset,
-             float sm_scale) {
-  extern __shared__ float smem[];
-  const int LQ = dh + 1, LK = dh + 1, LP = BK + 1;
-  float* Qs = smem;                 // [BQ][LQ]
-  float* Ks = Qs + BQ * LQ;         // [BK][LK]
-  float* Vs = Ks + BK * LK;         // [BK][dh]
-  float* Ps = Vs + BK * dh;         // [BQ][LP]
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 2, sub = tid & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-
-  for (int i = tid; i < BQ * dh; i += THREADS) {
-    const int row = i / dh, d = i - row * dh;
-    const int qr = q0 + row;
-    Qs[row * LQ + d] =
-        qr < Sq ? to_f32(qb[(long long)qr * qs.s + d]) * sm_scale : 0.f;
-  }
-
-  // the key range this block's mask can reach
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int k_begin = 0, k_end = Sk;
-  if (causal) k_end = min(Sk, q_last + q_offset + 1);
-  if (window) k_begin = max(0, q0 + q_offset - window + 1);
-  const int t_begin = k_begin / BK;
-  const int t_end = k_end > k_begin ? (k_end + BK - 1) / BK : t_begin;
-
-  const int qpos = q0 + r + q_offset;
-  float m = NEG_INF, l = 0.f;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // Q is stored; the previous tile is no longer read
-    for (int i = tid; i < BK * dh; i += THREADS) {
-      const int row = i / dh, d = i - row * dh;
-      const int kr = k0 + row;
-      const bool in = kr < Sk;
-      Ks[row * LK + d] = in ? to_f32(kb[(long long)kr * ks.s + d]) : 0.f;
-      Vs[row * dh + d] = in ? to_f32(vb[(long long)kr * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) s[i] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      const float qd = Qs[r * LQ + d];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) s[i] += qd * Ks[(sub + 4 * i) * LK + d];
-    }
-    float mt = NEG_INF;
-    unsigned ok = 0;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kp = k0 + sub + 4 * i;
-      const bool in = kp < Sk && (!causal || kp <= qpos) &&
-                      (!window || kp > qpos - window);
-      ok |= (unsigned)in << i;
-      s[i] = in ? s[i] : NEG_INF;
-      mt = fmaxf(mt, s[i]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float p = (ok >> i) & 1u ? expf(s[i] - m_safe) : 0.f;
-      Ps[r * LP + sub + 4 * i] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float corr = m <= NEG_INF / 2 ? 0.f : expf(m - m_safe);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();  // the row's four threads (one warp) see each other's p
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] *= corr;
-    for (int j = 0; j < BK; ++j) {
-      const float p = Ps[r * LP + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int col = sub + 4 * c;
-        if (col < dh) acc[c] += p * Vs[j * dh + col];
-      }
-    }
-  }
-
-  const int qr = q0 + r;
-  if (qr < Sq) {
-    const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    T* ob = o + b * os.b + h * os.h + (long long)qr * os.s;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = sub + 4 * c;
-      if (col < dh) store(ob + col, acc[c] * inv_l);
-    }
-  }
-}
-
-template <typename T, int C>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int dh, int causal, Strides qs,
-           Strides ks, Strides vs, Strides os, int window, int q_offset,
-           float sm_scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * smem_floats(dh);
-  auto kern = flash_kernel<T, C>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hq / Hkv, Sq, Sk, dh,
-      causal, qs, ks, vs, os, window, q_offset, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Sq, int Sk, int dh, int causal, Strides qs,
-             Strides ks, Strides vs, Strides os, int window, int q_offset,
-             float sm_scale, cudaStream_t st) {
-  if (dh <= 64)
-    return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, qs, ks,
-                         vs, os, window, q_offset, sm_scale, st);
-  if (dh <= 128)
-    return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, qs, ks,
-                         vs, os, window, q_offset, sm_scale, st);
-  return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, qs, ks,
-                       vs, os, window, q_offset, sm_scale, st);
-}
-
-}  // namespace
-
-// ---------------------------------------------------------------------------
-// Tensor-core route
-namespace {
 namespace tc {
 
 constexpr int THREADS = 128;      // one warpgroup
 constexpr int BM = 64;            // query rows a warpgroup
 constexpr int STAGES = 2;         // K/V ring depth
 constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -339,13 +170,18 @@ __device__ __forceinline__ void tma_box(const CUtensorMap* map, int perm,
 template <int DHP_, int PARTS_>
 struct Tile {
   static constexpr int DHP = DHP_, PARTS = PARTS_;
-  // keys a K/V tile: 32 on the split route, whose three parts of Q, K and V
-  // would need 240 KB at 64 keys and DHP 128
-  static constexpr int BN = PARTS == 3 ? 32 : 64;
+  // keys a K/V tile: 64 on the bf16 route; on the split route, whose three
+  // parts of Q, K and V would need 240 KB at 64 keys and DHP 128, 32 up to
+  // DHP 192 and 16 at 256
+  static constexpr int BN = PARTS == 1 ? 64 : DHP <= 192 ? 32 : 16;
   // warpgroups a block: two share each K/V stage where one warpgroup's Q
   // and ring would leave one 4-warp block an SM (bf16 above DHP 128, the
-  // split route above 64)
-  static constexpr int NWG = DHP > 128 || (PARTS == 3 && DHP > 64) ? 2 : 1;
+  // split route at DHP 128). The split route's DHP 192 keeps one
+  // warpgroup on 32-key tiles: two on 16-key tiles fit too, but ran
+  // slower on an H100 (their S products are m64n16k16); at DHP 256 two
+  // warpgroups do not fit (295,960 bytes)
+  static constexpr int NWG =
+      PARTS == 1 ? (DHP > 128 ? 2 : 1) : (DHP == 128 ? 2 : 1);
   static constexpr int NB = (DHP + 63) / 64;
   static constexpr int QBOX = BM * 128, KBOX = BN * 128;  // bytes of a box
   static constexpr int QPART = NB * QBOX, KPART = NB * KBOX;
@@ -355,6 +191,7 @@ struct Tile {
   // mbarriers, and 1 KB to align the swizzled tiles
   static constexpr size_t SMEM = 1024 + (size_t)NWG * QTILE +
                                  (size_t)2 * STAGES * KTILE + 8 * (STAGES + 1);
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
   using Out =
       typename std::conditional<PARTS == 3, float, __nv_bfloat16>::type;
 };
@@ -459,6 +296,23 @@ struct WgmmaSS<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  // d[64 x 16] (+)= a[64 x 16] . b[16 x 16], both K-major in shared memory;
+  // ``accumulate`` 0 overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
         : "l"(a), "l"(b), "r"(accumulate));
   }
 };
@@ -1019,61 +873,65 @@ int resources(int* out) {
   return (int)cudaSuccess;
 }
 
-// x [B, H, S, dh] f32 (element strides sb, sh, ss; dh contiguous) into its
-// three bf16 parts, out [3][B][H][S][dhp] contiguous: hi = bf16(x), mid =
-// bf16(x - hi), lo = bf16(x - hi - mid), columns dh .. dhp - 1 zero. One
-// warp a row, its lanes on neighbouring columns.
+// x [B, H, S, dh] (element strides sb, sh, ss; dh contiguous) into PARTS
+// bf16 parts, out [PARTS][B][H][S][dhp] contiguous, columns dh .. dhp - 1
+// zero. Part 0 is bf16(x) and part p the bf16 of what parts 0 .. p - 1
+// leave of x (each difference exact in f32): f32 in with 3 parts is the
+// split route's pass (hi, mid, lo), bf16 in with 1 part the pack, a plain
+// copy into rows of whole 16-byte units. One warp a row, its lanes on
+// neighbouring columns.
 constexpr int SPLIT_WARPS = 8;
+template <typename In, int PARTS>
 __global__ void __launch_bounds__(32 * SPLIT_WARPS)
-split_bf16x3_kernel(const float* __restrict__ x,
-                    __nv_bfloat16* __restrict__ out, int rows, int H, int S,
-                    int dh, int dhp, long long sb, long long sh,
-                    long long ss) {
+split_kernel(const In* __restrict__ x, __nv_bfloat16* __restrict__ out,
+             int rows, int H, int S, int dh, int dhp, long long sb,
+             long long sh, long long ss) {
+  static_assert(std::is_same<In, float>::value == (PARTS == 3),
+                "f32 splits into 3 parts, bf16 packs into 1");
   const int row = blockIdx.x * SPLIT_WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int s = row % S, bh = row / S;
-  const float* xr = x + (bh / H) * sb + (bh % H) * sh + s * ss;
-  const long long part = (long long)rows * dhp;
-  __nv_bfloat16* hi = out + (long long)row * dhp;
+  const In* xr = x + (bh / H) * sb + (bh % H) * sh + s * ss;
+  __nv_bfloat16* dst = out + (long long)row * dhp;
   for (int d = threadIdx.x & 31; d < dhp; d += 32) {
-    float r = d < dh ? xr[d] : 0.f;
-    const __nv_bfloat16 a = __float2bfloat16(r);
-    r -= __bfloat162float(a);
-    const __nv_bfloat16 c = __float2bfloat16(r);
-    r -= __bfloat162float(c);
-    hi[d] = a;
-    hi[part + d] = c;
-    hi[2 * part + d] = __float2bfloat16(r);
+    if constexpr (PARTS == 1) {
+      dst[d] = d < dh ? xr[d] : __float2bfloat16(0.f);
+    } else {
+      float r = d < dh ? xr[d] : 0.f;
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {   // part p at p * rows * dhp
+        const __nv_bfloat16 y = __float2bfloat16(r);
+        dst[(long long)p * rows * dhp + d] = y;
+        r -= __bfloat162float(y);
+      }
+    }
   }
+}
+
+// split_kernel<In, PARTS> over x [B, H, S, dh] into out (see
+// split_bf16x3_launch); returns a cudaError_t
+template <typename In, int PARTS>
+int split_launch(const void* x, void* out, int B, int H, int S, int dh,
+                 int dhp, long long sb, long long sh, long long ss,
+                 cudaStream_t stream) {
+  const long long rows = (long long)B * H * S;
+  if (dh <= 0 || dhp < dh || B < 0 || H < 0 || S < 0 || rows > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  const int grid = (int)((rows + SPLIT_WARPS - 1) / SPLIT_WARPS);
+  split_kernel<In, PARTS><<<grid, 32 * SPLIT_WARPS, 0, stream>>>(
+      (const In*)x, (__nv_bfloat16*)out, (int)rows, H, S, dh, dhp, sb, sh,
+      ss);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 }  // namespace
 
 // Strides are in elements, (batch, head, sequence) for each of q, k, v, o.
-// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// head dim outside (0, 256] or query heads that KV heads do not divide.
-extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int Sq, int Sk, int dh, int causal, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, int window, int q_offset,
-    float sm_scale, int bf16, void* stream) {
-  if (dh <= 0 || dh > 256 || Hkv <= 0 || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaSuccess;
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
-      vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal,
-                                   qs, ks, vs, os, window, q_offset, sm_scale,
-                                   st);
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, qs, ks,
-                         vs, os, window, q_offset, sm_scale, st);
-}
-
+// Each entry returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for a head dim outside (0, dhp], a dhp no
+// instantiation has, or query heads that KV heads do not divide.
 #define FLASH_TC_ARGS                                                        \
   const void *q, const void *k, const void *v, void *o, int B, int Hq,       \
       int Hkv, int Sq, int Sk, int dh, int causal, long long q_sb,           \
@@ -1091,12 +949,12 @@ extern "C" int flash_attention_launch(
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,              \
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}
 
-// The tensor-core route: bf16 q, k, v, o, 0 < dh <= dhp, dhp the padded
-// head dim of an instantiation (64, 80, 128, 160, 192 or 256; the wrapper
-// picks it), every base 16-byte aligned and every stride of a dim longer
-// than 1 a multiple of 8 elements (the wrapper checks; a tensor map
-// cuTensorMapEncodeTiled refuses returns cudaErrorInvalidValue). Other
-// arguments as flash_attention_launch's.
+// The bf16 route: bf16 q, k, v, o, 0 < dh <= dhp, dhp the padded head dim
+// of an instantiation (64, 80, 128, 160, 192 or 256; the wrapper picks
+// it), every base of q, k, v 16-byte aligned and every stride of a dim
+// longer than 1 a multiple of 8 elements (the wrapper packs an operand
+// that is not; a tensor map cuTensorMapEncodeTiled refuses returns
+// cudaErrorInvalidValue); o through its own strides.
 extern "C" int flash_attention_wgmma_launch(FLASH_TC_ARGS) {
   FLASH_TC_STRIDES;
   switch (dhp) {
@@ -1113,12 +971,14 @@ extern "C" int flash_attention_wgmma_launch(FLASH_TC_ARGS) {
 // The split route: f32 attention on the tensor cores. q, k, v are the
 // [3 B, H, S, dh] bf16 views of split_bf16x3_launch's parts (batch p * B +
 // b is part p of batch b; strides of those views), o the f32 output; dhp
-// 64 or 128. Other arguments as flash_attention_wgmma_launch's.
+// 64, 128, 192 or 256. Other arguments as flash_attention_wgmma_launch's.
 extern "C" int flash_attention_split_f32_launch(FLASH_TC_ARGS) {
   FLASH_TC_STRIDES;
   switch (dhp) {
     case 64: FLASH_TC(64, 3);
     case 128: FLASH_TC(128, 3);
+    case 192: FLASH_TC(192, 3);
+    case 256: FLASH_TC(256, 3);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1132,28 +992,33 @@ extern "C" int flash_attention_split_f32_launch(FLASH_TC_ARGS) {
 extern "C" int split_bf16x3_launch(const void* x, void* out, int B, int H,
                                    int S, int dh, int dhp, long long sb,
                                    long long sh, long long ss, void* stream) {
-  const long long rows = (long long)B * H * S;
-  if (dh <= 0 || dhp < dh || B < 0 || H < 0 || S < 0 || rows > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
-  const int grid = (int)((rows + tc::SPLIT_WARPS - 1) / tc::SPLIT_WARPS);
-  tc::split_bf16x3_kernel<<<grid, 32 * tc::SPLIT_WARPS, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)x, (__nv_bfloat16*)out, (int)rows, H, S, dh, dhp, sb, sh,
-      ss);
-  return (int)cudaGetLastError();
+  return tc::split_launch<float, 3>(x, out, B, H, S, dh, dhp, sb, sh, ss,
+                                    (cudaStream_t)stream);
+}
+
+// x [B, H, S, dh] bf16 (element strides sb, sh, ss; dh contiguous) copied
+// into out, a contiguous [B, H, S, dhp] bf16 buffer (dhp >= dh), columns past
+// dh zero. Returns a cudaError_t.
+extern "C" int pack_bf16_launch(const void* x, void* out, int B, int H, int S,
+                                int dh, int dhp, long long sb, long long sh,
+                                long long ss, void* stream) {
+  return tc::split_launch<__nv_bfloat16, 1>(x, out, B, H, S, dh, dhp, sb, sh,
+                                            ss, (cudaStream_t)stream);
 }
 
 // Resources of the tensor-core instantiation of padded head dim ``dhp``
 // (the bf16 route's 64, 80, 128, 160, 192, 256 with f32 0; the split
-// route's 64, 128 with f32 1): out[0] registers a thread, out[1] local
-// (spill) bytes a thread, out[2] dynamic shared bytes a block, out[3]
-// threads a block, out[4] blocks resident an SM. Returns a cudaError_t.
+// route's 64, 128, 192, 256 with f32 1): out[0] registers a thread,
+// out[1] local (spill) bytes a thread, out[2] dynamic shared bytes a
+// block, out[3] threads a block, out[4] blocks resident an SM. Returns a
+// cudaError_t.
 extern "C" int flash_attention_wgmma_resources(int dhp, int f32, int* out) {
   if (f32) {
     switch (dhp) {
       case 64: return tc::resources<64, 3>(out);
       case 128: return tc::resources<128, 3>(out);
+      case 192: return tc::resources<192, 3>(out);
+      case 256: return tc::resources<256, 3>(out);
     }
     return (int)cudaErrorInvalidValue;
   }

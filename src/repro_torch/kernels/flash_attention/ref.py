@@ -3,9 +3,10 @@
 Counterpart of ``src/repro/kernels/flash_attention/ref.py``: the same
 ``[B, H, S, dh]`` contract as the kernel, scores in float32 over K/V
 repeated to the query heads, causal / sliding-window masks placed by
-``q_offset``, fully masked rows 0 (not NaN). And the plain version of the
-split route's pass, :func:`split_bf16x3_ref`, which only the tests and the
-chip smoke call.
+``q_offset``, fully masked rows 0 (not NaN). And the plain versions of
+the passes that feed the kernel, the split route's
+:func:`split_bf16x3_ref` and the pack :func:`pack_bf16_ref`, which only
+the tests and the chip smoke call.
 """
 
 from __future__ import annotations
@@ -50,3 +51,9 @@ def split_bf16x3_ref(x: torch.Tensor) -> torch.Tensor:
     mid = r.to(torch.bfloat16)
     lo = (r - mid.float()).to(torch.bfloat16)
     return torch.stack([hi, mid, lo])
+
+
+def pack_bf16_ref(x: torch.Tensor) -> torch.Tensor:
+    """x ``[..., dh]`` -> a contiguous ``[..., dhp]`` copy, ``dhp`` = ``dh``
+    rounded up to 8, the columns past ``dh`` zero."""
+    return torch.nn.functional.pad(x, (0, -x.shape[-1] % 8)).contiguous()

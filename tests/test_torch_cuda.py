@@ -539,37 +539,39 @@ def test_cuda_flash_attention_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal,
     (torch.float32, 128, "split_f32"), (torch.bfloat16, 160, "wgmma"),
     (torch.bfloat16, 192, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "split_f32"),
-    (torch.float32, 160, "cuda_core"), (torch.bfloat16, 37, "cuda_core"),
-    (torch.float32, 37, "cuda_core")])
+    (torch.float32, 160, "split_f32"), (torch.bfloat16, 37, "wgmma"),
+    (torch.float32, 37, "split_f32")])
 def test_cuda_flash_attention_route_counters(cuda, dtype, dh, which):
     """Each input takes the route ``route`` names and raises that route's
-    counter and no other: bf16 up to dh 256 ``wgmma``; f32 up to dh 128
+    counter and no other: bf16 up to dh 256 ``wgmma``, f32 up to dh 256
     the split route (three ``split_bf16x3`` passes, then one attention
-    launch); f32 at dh 160, and dh 37 (rows of 74 or 148 bytes, which no
-    tensor map takes) the CUDA cores. Every launch raises the flash
-    counter once."""
+    launch); at dh 37 (rows of 74 or 148 bytes, which no tensor map takes)
+    bf16 packs q, k and v first (three ``pack_bf16`` passes). Every launch
+    raises the flash counter once."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fk
     g = torch.Generator(device=cuda).manual_seed(6)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = rnd(2, 90, 8, dh), rnd(2, 90, 2, dh), rnd(2, 90, 2, dh)
-    assert fk.route(*(t.transpose(1, 2) for t in (q, k, v))) == which
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert fk.route(*views) == which
+    packs = sum(fk.packed(*views)) if which == "wgmma" else 0
+    assert packs == (3 if (dh, which) == (37, "wgmma") else 0)
     n0 = _build.counts()
     got = flash_attention(q, k, v)
     want = flash_attention(q, k, v, use_kernel=False)
     torch.cuda.synchronize()
     n1 = _build.counts()
     moved = {c: n1[c] - n0.get(c, 0) for c in n1 if n1[c] != n0.get(c, 0)}
-    assert fk.route_counter(which, dtype).name == {
+    assert fk.route_counter(which).name == {
         "wgmma": "flash_attention_wgmma",
-        "split_f32": "flash_attention_split_f32",
-        "cuda_core": "flash_attention_cuda_core_" + (
-            "bf16" if dtype == torch.bfloat16 else "f32")}[which]
+        "split_f32": "flash_attention_split_f32"}[which]
     assert moved == {"flash_attention": 1,
-                     fk.route_counter(which, dtype).name: 1,
+                     fk.route_counter(which).name: 1,
                      **({"split_bf16x3": 3} if which == "split_f32"
-                        else {})}
+                        else {}),
+                     **({"pack_bf16": packs} if packs else {})}
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 2e-5
     else:
@@ -612,14 +614,14 @@ def test_cuda_flash_attention_dh160_on_the_tensor_cores(
     else:
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    assert fk.tensor_core_route(q, k, v)
+    assert fk.tensor_core_route(q, k, v) and not any(fk.packed(q, k, v))
     t0 = fk.flash_attention_wgmma_launches.n
-    c0 = fk.flash_attention_cuda_core_bf16_launches.n
+    p0 = fk.pack_bf16_launches.n
     got = fk.flash_attention_fwd(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fk.flash_attention_wgmma_launches.n == t0 + 1
-    assert fk.flash_attention_cuda_core_bf16_launches.n == c0
+    assert fk.pack_bf16_launches.n == p0
     assert got.stride() == q.stride()
     assert _bf16_ulp_ratio(got, want) <= 1.0
     if q_offset < 0:
@@ -643,8 +645,7 @@ def test_cuda_flash_attention_dh160_resources(cuda):
 def test_cuda_flash_attention_dh160_launch_failure_raises(cuda,
                                                           monkeypatch):
     """A dh-160 launch whose C entry point returns an error raises: no
-    fallback to the plain version or to the CUDA-core route, and no
-    counter moves."""
+    fallback to the plain version, and no counter moves."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     t = torch.ones((1, 4, 70, 160), device=cuda, dtype=torch.bfloat16)
@@ -684,8 +685,8 @@ def test_cuda_flash_attention_dh192_256_on_the_tensor_cores(
     """bf16 with dh in (160, 256] on ``wgmma`` (the DHP-192 and DHP-256
     instantiations, two warpgroups a block) within
     one bf16 ulp of the plain version, in the model's strided ``[B, S, H,
-    dh]`` view and in ``[B, H, S, dh]``; fully masked rows are 0; the bf16
-    CUDA-core counter does not move."""
+    dh]`` view and in ``[B, H, S, dh]``; fully masked rows are 0; nothing
+    is packed."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     g = torch.Generator(device=cuda).manual_seed(9)
@@ -697,14 +698,14 @@ def test_cuda_flash_attention_dh192_256_on_the_tensor_cores(
     else:
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    assert fk.route(q, k, v) == "wgmma"
+    assert fk.route(q, k, v) == "wgmma" and not any(fk.packed(q, k, v))
     t0 = fk.flash_attention_wgmma_launches.n
-    c0 = fk.flash_attention_cuda_core_bf16_launches.n
+    p0 = fk.pack_bf16_launches.n
     got = fk.flash_attention_fwd(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fk.flash_attention_wgmma_launches.n == t0 + 1
-    assert fk.flash_attention_cuda_core_bf16_launches.n == c0
+    assert fk.pack_bf16_launches.n == p0
     assert got.stride() == q.stride()
     assert _bf16_ulp_ratio(got, want) <= 1.0
     if q_offset < 0:
@@ -770,8 +771,7 @@ def test_cuda_split_bf16x3_bitwise(cuda, shape, layout):
 def test_cuda_flash_attention_dh192_256_launch_failure_raises(cuda, dh,
                                                               monkeypatch):
     """A dh-192 / 256 launch whose C entry point returns an error raises:
-    no fallback to the CUDA-core route or the plain version, and no
-    counter moves."""
+    no fallback to the plain version, and no counter moves."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     t = torch.ones((1, 4, 70, dh), device=cuda, dtype=torch.bfloat16)
@@ -788,9 +788,9 @@ def test_cuda_flash_attention_dh192_256_launch_failure_raises(cuda, dh,
 def test_cuda_flash_attention_split_launch_failure_raises(cuda, failing,
                                                           monkeypatch):
     """On the split route a failed split pass or a failed attention launch
-    raises, naming its entry point: no fallback to the CUDA-core route or
-    the plain version. No flash counter moves; the split counter counts
-    only the passes that launched (none, or all three)."""
+    raises, naming its entry point: no fallback to the plain version. No
+    flash counter moves; the split counter counts only the passes that
+    launched (none, or all three)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     t = torch.ones((1, 4, 70, 128), device=cuda)
@@ -804,6 +804,214 @@ def test_cuda_flash_attention_split_launch_failure_raises(cuda, failing,
     n1 = _build.counts()
     split = 3 if failing == "flash_attention_split_f32_launch" else 0
     assert n1 == dict(n0, split_bf16x3=n0.get("split_bf16x3", 0) + split)
+
+
+def _strided(x, pad, offset):
+    """x [B, H, S, dh] as a view into a buffer whose rows are ``dh + pad``
+    elements wide and whose base is ``offset`` elements in; the same
+    values."""
+    B, H, S, dh = x.shape
+    buf = torch.zeros(offset + B * H * S * (dh + pad), dtype=x.dtype,
+                      device=x.device)
+    view = buf[offset:].view(B, H, S, dh + pad)[..., :dh]
+    view.copy_(x)
+    return view
+
+
+FLASH_PACKED_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
+    (2, 100, 100, 8, 2, 64, True, 0, 0),
+    (1, 70, 200, 4, 2, 128, True, 32, 130),   # window + offset
+    (2, 200, 200, 8, 2, 160, True, 0, 0),     # stablelm's width
+    (1, 150, 64, 4, 1, 192, True, 16, 60),    # a window past Sk
+    (2, 65, 190, 8, 2, 256, False, 0, 0),     # no mask, ragged tiles
+    (1, 200, 200, 4, 1, 192, True, 0, -100),  # a fully masked warpgroup
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset",
+                         FLASH_PACKED_CASES)
+@pytest.mark.parametrize("which,pad,offset", [
+    ("qkv", 3, 0), ("qkv", 0, 1), ("k", 5, 0)])
+def test_cuda_flash_attention_bf16_packed_views(
+        cuda, B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, which, pad,
+        offset):
+    """bf16 on views no tensor map takes (rows padded by an odd count of
+    elements, or a base 2 bytes off; all three operands, or k alone):
+    packed first, one ``pack_bf16`` a view, then ``wgmma``, within one
+    bf16 ulp of the plain version; the output keeps q's layout."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rnd = lambda h, n: torch.randn((B, h, n, dh), generator=g,
+                                   device=cuda).to(torch.bfloat16)
+    q, k, v = rnd(Hq, Sq), rnd(Hkv, Sk), rnd(Hkv, Sk)
+    q, k, v = (_strided(t, pad, offset) if n in which else t
+               for t, n in zip((q, k, v), "qkv"))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want_packed = tuple(n in which for n in "qkv")
+    assert fk.route(q, k, v) == "wgmma"
+    assert fk.packed(q, k, v) == want_packed
+    n0 = _build.counts()
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    n1 = _build.counts()
+    moved = {c: n1[c] - n0.get(c, 0) for c in n1 if n1[c] != n0.get(c, 0)}
+    assert moved == {"flash_attention": 1, "flash_attention_wgmma": 1,
+                     "pack_bf16": sum(want_packed)}
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _bf16_ulp_ratio(got, want) <= 1.0
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
+
+
+FLASH_F32_WIDE_CASES = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset
+    (2, 130, 130, 8, 2, 136, True, 0, 0),     # dh 136 in the 192 tiles
+    (2, 200, 200, 8, 2, 160, True, 0, 0),     # stablelm's width
+    (1, 70, 333, 8, 1, 160, True, 0, 263),    # decode-tail offset
+    (2, 300, 300, 16, 4, 192, True, 100, 0),  # sliding window
+    (1, 129, 250, 32, 4, 200, True, 40, 121),  # dh 200 in the 256 tiles
+    (2, 65, 190, 8, 2, 256, False, 0, 0),     # no mask, ragged tiles
+    (1, 200, 200, 4, 1, 160, True, 0, -100),  # a fully masked query tile
+    (1, 200, 200, 4, 1, 256, True, 0, -100),  # ... at DHP 256
+    (1, 150, 64, 4, 1, 192, True, 16, 60),    # a window past Sk
+    (1, 150, 64, 4, 1, 256, True, 16, 60),    # ... at DHP 256
+    (4, 1024, 1024, 32, 8, 160, True, 0, 0),  # stablelm's prefill (6'cc)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset",
+                         FLASH_F32_WIDE_CASES)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_attention_f32_wide_on_the_split_route(
+        cuda, B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, layout):
+    """f32 with dh in (128, 256] on the split route (DHP 192: 32-key
+    tiles; DHP 256: 16-key tiles; one warpgroup a block) within
+    2e-5 of the plain version, in the model's strided ``[B, S, H, dh]``
+    view and in ``[B, H, S, dh]``; fully masked rows are 0."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rnd = lambda b, s_, h: torch.randn((b, s_, h, dh), generator=g,
+                                       device=cuda)
+    q, k, v = rnd(B, Sq, Hq), rnd(B, Sk, Hkv), rnd(B, Sk, Hkv)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    else:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fk.route(q, k, v) == "split_f32"
+    n0 = _build.counts()
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    n1 = _build.counts()
+    moved = {c: n1[c] - n0.get(c, 0) for c in n1 if n1[c] != n0.get(c, 0)}
+    assert moved == {"flash_attention": 1, "flash_attention_split_f32": 1,
+                     "split_bf16x3": 3}
+    assert got.stride() == q.stride()
+    assert (got - want).abs().max().item() <= 2e-5
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,pad,offset,q_offset", [
+    (64, 2, 0, 0), (128, 0, 2, 0), (128, 6, 1, -70), (96, 1, 3, 30)])
+def test_cuda_flash_attention_f32_views_no_tensor_map_takes(
+        cuda, dh, pad, offset, q_offset):
+    """f32 at dh <= 128 on views no tensor map takes (rows padded off whole
+    16-byte units, a base off a 16-byte boundary) on the split route,
+    whose pass reads any strides: within 2e-5 of the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(14)
+    rnd = lambda h, n: torch.randn((2, h, n, dh), generator=g, device=cuda)
+    q, k, v = (_strided(t, pad, offset) for t in
+               (rnd(8, 150), rnd(2, 180), rnd(2, 180)))
+    assert all(fk.packed(q, k, v)) and fk.route(q, k, v) == "split_f32"
+    kw = dict(causal=True, window=0, q_offset=q_offset)
+    n0 = fk.split_bf16x3_launches.n
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.split_bf16x3_launches.n == n0 + 3
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pad,offset", [
+    ((2, 16, 512, 192), 4, 0), ((2, 5, 77, 37), 0, 1),
+    ((1, 3, 33, 161), 3, 5), ((2, 4, 19, 256), 0, 0)])
+def test_cuda_pack_bf16_bitwise(cuda, shape, pad, offset):
+    """The pack bitwise equal to ``pack_bf16_ref`` (bf16 bits compared as
+    int16, the zero columns past dh included) on views padded off whole
+    16-byte units, a base off a 16-byte boundary, and a contiguous
+    tensor."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import pack_bf16_ref
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = _strided(torch.randn(shape, generator=g, device=cuda).to(
+        torch.bfloat16), pad, offset)
+    n0 = fk.pack_bf16_launches.n
+    got = fk.pack_bf16(x)
+    want = pack_bf16_ref(x)
+    torch.cuda.synchronize()
+    assert fk.pack_bf16_launches.n == n0 + 1
+    assert got.shape == x.shape and got.data_ptr() % 16 == 0
+    assert got.stride(2) == want.shape[3] and got.stride(2) % 8 == 0
+    whole = torch.as_strided(got, want.shape, want.stride())
+    assert torch.equal(whole.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,shared,threads", [
+    (192, 1024 + 3 * 3 * 8192 + 4 * 3 * 3 * 4096 + 24, 128),
+    (256, 1024 + 3 * 4 * 8192 + 4 * 3 * 4 * 2048 + 24, 128)])
+def test_cuda_flash_attention_split_wide_resources(cuda, dh, shared,
+                                                   threads):
+    """The split route's DHP-192 (32-key tiles) and DHP-256 (16-key tiles)
+    instantiations, one warpgroup a block, spill nothing, with the shared
+    bytes of their layouts (three Q parts, two stages of three K and three
+    V parts), one block an SM."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    res = fk.tensor_core_resources(dh, torch.float32)
+    assert res["local_bytes"] == 0
+    assert res["shared_bytes"] == shared and res["threads"] == threads
+    assert res["blocks_per_sm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,failing", [
+    (torch.bfloat16, 160, "pack_bf16_launch"),
+    (torch.bfloat16, 160, "flash_attention_wgmma_launch"),
+    (torch.float32, 192, "split_bf16x3_launch"),
+    (torch.float32, 256, "flash_attention_split_f32_launch")])
+def test_cuda_flash_attention_new_paths_launch_failure_raises(
+        cuda, dtype, dh, failing, monkeypatch):
+    """A failed pack, a failed attention launch on packed views, and a
+    failed split or attention launch at DHP 192 / 256 raise, naming their
+    entry point: no fallback to the plain version. No flash counter moves;
+    the pack and split counters count only the passes that launched."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t = torch.ones((1, 4, 70, dh), device=cuda, dtype=dtype)
+    if dtype == torch.bfloat16:
+        t = _strided(t, 3, 0)
+    n0 = dict(_build.counts())
+    real = _build.launch
+    monkeypatch.setattr(_build, "launch", lambda fn, index, *args: 1 if
+                        fn.__name__ == failing else real(fn, index, *args))
+    with pytest.raises(RuntimeError, match=failing):
+        fk.flash_attention_fwd(t, t[:, :2], t[:, :2])
+    torch.cuda.synchronize()
+    passes = "pack_bf16" if dtype == torch.bfloat16 else "split_bf16x3"
+    n = 3 if failing.startswith("flash_attention") else 0
+    assert _build.counts() == dict(n0, **{passes: n0.get(passes, 0) + n})
 
 
 @pytest.mark.cuda
