@@ -153,3 +153,110 @@ def model_params_from_jax(params_np: dict, cfg, device=None):
     if missing:
         raise ValueError(f"parameters not in the reference tree: {missing}")
     return model
+
+
+def _ref_path(key: str) -> list:
+    """A parameter-tree key as the reference tree's path: ``period.0.mix.wq``
+    -> ``["period", 0, "mix", "wq"]`` (the period tuple's index an int)."""
+    parts = key.split(".")
+    if parts[0] == "period":
+        parts[1] = int(parts[1])
+    return parts
+
+
+def _ref_get(tree, key: str):
+    for k in _ref_path(key):
+        tree = tree[k]
+    return tree
+
+
+def _split(key: str, a) -> list:
+    """A reference leaf as the port's parts: one a period when stacked."""
+    from repro_torch.optim.common import stacked
+    a = np.asarray(a)
+    return list(a) if stacked(key) else [a]
+
+
+def _stack(key: str, parts: list) -> np.ndarray:
+    from repro_torch.optim.common import stacked
+    arrs = [array_to_numpy(t) for t in parts]
+    return np.stack(arrs) if stacked(key) else arrs[0]
+
+
+def _to_ref_tree(flat: dict) -> dict:
+    """``{key: leaf}`` -> the reference's nested tree (``period`` a
+    tuple of the positions' dicts)."""
+    out: dict = {}
+    for key, leaf in flat.items():
+        *path, last = _ref_path(key)
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    if "period" in out:
+        out["period"] = tuple(out["period"][i]
+                              for i in range(len(out["period"])))
+    return out
+
+
+def train_state_from_jax(params_np: dict, opt_np: dict, cfg, opt_name: str,
+                         device=None):
+    """The reference's parameters and optimizer state (leaves numpy) as
+    the port's trainable model of ``cfg`` and the optimizer state of
+    ``repro_torch.optim`` over its parameter tree
+    (``optim.common.param_tree``): AdamW's ``m`` / ``v``, split per layer
+    as the parameters are; Adafactor's ``row`` / ``col`` / ``v``, which
+    keep the reference's stacked shapes (its statistics couple the layers
+    a leaf stacks). Returns ``(model, opt_state)``."""
+    from repro_torch.optim.common import param_tree
+
+    model = model_params_from_jax(params_np, cfg, device)
+    model.requires_grad_(True)
+    tree = param_tree(model)
+    dev = model.device
+    if opt_name == "adamw":
+        state = {n: {k: [array_from_numpy(a, dev)
+                         for a in _split(k, _ref_get(opt_np[n], k))]
+                     for k in tree} for n in ("m", "v")}
+    elif opt_name == "adafactor":
+        state = {"acc": {k: {n: array_from_numpy(a, dev)
+                             for n, a in _ref_get(opt_np["acc"], k).items()}
+                         for k in tree}}
+    else:
+        raise ValueError(f"unknown optimizer {opt_name!r}")
+    return model, state
+
+
+def params_to_jax(model) -> dict:
+    """The inverse of :func:`model_params_from_jax` for the decoder-only
+    trunk: the model's parameters as the reference's tree, leaves numpy,
+    period leaves stacked."""
+    from repro_torch.optim.common import param_tree
+    return _to_ref_tree({k: _stack(k, parts)
+                         for k, parts in param_tree(model).items()})
+
+
+def grads_to_jax(model, cfg, opt_state: dict | None = None):
+    """The port's gradients (each parameter's ``.grad``; zeros where none)
+    as the reference's gradient tree, leaves numpy, period leaves stacked;
+    with ``opt_state`` also that state in the reference's optimizer tree:
+    ``(grads, opt)``. ``cfg`` must be the model's."""
+    from repro_torch.optim.common import param_tree
+
+    if model.cfg != cfg:
+        raise ValueError(f"model of {model.cfg.name}, not of {cfg.name}")
+    tree = param_tree(model)
+    grads = _to_ref_tree({
+        k: _stack(k, [torch.zeros_like(p) if p.grad is None else p.grad
+                      for p in parts]) for k, parts in tree.items()})
+    if opt_state is None:
+        return grads
+    if "acc" in opt_state:
+        opt = {"acc": _to_ref_tree({
+            k: {n: array_to_numpy(t) for n, t in acc.items()}
+            for k, acc in opt_state["acc"].items()})}
+    else:
+        opt = {n: _to_ref_tree({k: _stack(k, parts)
+                                for k, parts in opt_state[n].items()})
+               for n in ("m", "v")}
+    return grads, opt

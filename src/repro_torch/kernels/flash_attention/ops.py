@@ -20,6 +20,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, use_kernel: bool = True
                     ) -> torch.Tensor:
     """q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh] -> [B,Sq,Hq,dh] in q's dtype."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only: an input requires grad under "
+            "grad mode, and the output would be cut from the autograd "
+            "graph; train through repro_torch.models.attention."
+            "train_attention (Transformer.train_forward)")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if use_kernel and q.is_cuda:
         o = flash_attention_fwd(qt, kt, vt, causal=causal, window=window,

@@ -1,5 +1,11 @@
 """Selective scan: the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors (or when the caller opts out)."""
+CPU tensors (or when the caller opts out).
+
+Forward-only, as the reference's kernel: under grad mode an input that
+requires grad raises on either device, since the kernel's output would be
+cut from the autograd graph without a word. The Mamba mixer's training
+route is ``repro_torch.models.mamba.apply_mamba_train``.
+"""
 
 from __future__ import annotations
 
@@ -28,6 +34,13 @@ def selective_scan(dt, b, c, x, a, *, use_kernel: bool = True,
     """dt/x [B,S,di], b/c [B,S,N], a [di,N] -> y [B,S,di] (dt's dtype), and
     with ``return_state`` also the float32 decode carry ``h_S [B,di,N]``
     (``h_0 = 0``). A CUDA ``dt`` goes through the kernel (or raises)."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (dt, b, c, x, a)):
+        raise RuntimeError(
+            "selective_scan is forward-only: an input requires grad under "
+            "grad mode, and the output would be cut from the autograd "
+            "graph; train through repro_torch.models.mamba."
+            "apply_mamba_train (Transformer.train_forward)")
     if use_kernel and dt.is_cuda:
         y, h = selective_scan_fwd(*_kernel_views(dt, b, c, x, a))
     else:

@@ -1,5 +1,5 @@
-"""GQA attention of the model: one-token decode and full-sequence prefill
-(self- or cross-attention).
+"""GQA attention of the model: one-token decode, full-sequence prefill
+(self- or cross-attention) and the differentiable training route.
 
 Counterpart of ``repro.models.attention``. All share its contract:
 ``q [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` with ``Hq = G*Hkv``; softmax
@@ -17,6 +17,16 @@ no soft-cap; ROADMAP queue 1 item 6).
   the Pallas flash kernel as its twin. Here it is that kernel's port
   (:func:`repro_torch.kernels.flash_attention.flash_attention`): the CUDA
   kernel for CUDA tensors, the exact-softmax plain version on the CPU.
+  The kernel is forward-only, and its wrapper refuses inputs that
+  require grad under grad mode.
+* :func:`train_attention` — the route of ``Transformer.train_forward``:
+  the reference's ``blocked_attention`` as it is differentiated there, a
+  loop over query chunks, each under ``torch.utils.checkpoint``, around
+  :func:`_attention_q_chunk`, an online-softmax sweep over every key block
+  (masked where inactive) in float32 with ``q`` pre-scaled. Plain
+  PyTorch on both devices, as the reference's is jnp: autograd
+  differentiates it, and backward recomputes one query chunk's sweep at a
+  time.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -43,6 +54,71 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``window`` > 0: each query sees its last ``window`` keys) or, with
     ``causal=False``, bidirectional."""
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _attention_q_chunk(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q0: int, *, causal: bool, window: int,
+                       block_k: int) -> torch.Tensor:
+    """Online-softmax sweep of all key blocks for one query chunk.
+
+    ``qg [B,Hkv,G,Cq,dh]`` float32, pre-scaled; ``k``/``v [B,Sk,Hkv,dh]``;
+    ``q0`` the chunk's first query row. Returns ``[B,Hkv,G,Cq,dh]``
+    float32."""
+    B, Hkv, G, Cq, dh = qg.shape
+    dev = qg.device
+    qpos = torch.arange(Cq, device=dev) + q0
+    neg = torch.full((), NEG_INF, device=dev)
+    zero = torch.zeros((), device=dev)
+    m = torch.full((B, Hkv, G, Cq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, G, Cq), device=dev)
+    acc = torch.zeros((B, Hkv, G, Cq, dh), device=dev)
+    for j in range(k.shape[1] // block_k):
+        kblk = k[:, j * block_k:(j + 1) * block_k].float()
+        vblk = v[:, j * block_k:(j + 1) * block_k].float()
+        s = torch.einsum("bkgqd,bskd->bkgqs", qg, kblk)
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        msk = torch.ones((Cq, block_k), dtype=torch.bool, device=dev)
+        if causal:
+            msk &= kpos[None, :] <= qpos[:, None]
+        if window:
+            msk &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(msk, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, zero, m_new)
+        p = torch.where(msk, torch.exp(s - m_safe[..., None]), zero)
+        dead = m <= NEG_INF / 2
+        corr = torch.where(dead, zero,
+                           torch.exp(torch.where(dead, neg, m) - m_safe))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                   vblk)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True, window: int = 0,
+                    block_q: int = 1024, block_k: int = 512) -> torch.Tensor:
+    """Differentiable GQA attention over the full sequence, ``q
+    [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` -> ``[B,Sq,Hq,dh]`` in q's
+    dtype: causal, ``window`` > 0 to a sliding window, or with
+    ``causal=False`` bidirectional. ``block_k`` halves until it divides
+    ``Sk`` and ``block_q`` until it divides ``Sq``, as the reference's."""
+    B, Sq, Hq, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    while Sk % block_k:
+        block_k //= 2
+    while Sq % block_q:
+        block_q //= 2
+    qg = _split_gqa(q, Hkv).float() / torch.sqrt(
+        torch.tensor(dh, dtype=torch.float32, device=q.device))
+    qg = qg.permute(0, 2, 3, 1, 4)                     # [B,Hkv,G,Sq,dh]
+    outs = [checkpoint(_attention_q_chunk,
+                       qg[:, :, :, i:i + block_q], k, v, i, causal=causal,
+                       window=window, block_k=block_k, use_reentrant=False)
+            for i in range(0, Sq, block_q)]
+    out = torch.cat(outs, 3).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dh)
+    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,7 +17,9 @@ The decode state is the reference's: ``{"self_kv": {"k", "v"} [L, B,
 max_len, Hkv, dh], "cross_kv": {"k", "v"} [L, B, Se, Hkv, dh], "pos"}``.
 The cross K/V are computed once at prefill and stay static;
 :meth:`EncDec.decode_step` writes the token's self K/V in place and
-advances the host int ``pos``, as :class:`Transformer` does.
+advances the host int ``pos``, as :class:`Transformer` does. Training
+(the reference's ``train_forward``) is not ported yet:
+:meth:`EncDec.train_forward` raises (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -145,6 +147,13 @@ class EncDec(nn.Module):
     def _angles(self, start: int, n: int) -> torch.Tensor:
         pos = torch.arange(start, start + n, device=self.device)
         return rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
+
+    def train_forward(self, batch: dict) -> torch.Tensor:
+        """Not ported yet: the encoder-decoder's train route is the next
+        part of the training side."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: encoder-decoder training is not ported yet "
+            "(ROADMAP queue 1 item 4)")
 
     @torch.no_grad()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,15 @@
 """Shared layers: RMSNorm / LayerNorm, RoPE / M-RoPE, the SwiGLU / GeGLU
-MLP, and the parameter inits.
+MLP, the chunked cross-entropy, and the parameter inits.
 
-Counterpart of ``repro.models.layers``, for what the serving paths use.
+Counterpart of ``repro.models.layers``.
 Weights keep the reference's orientation, ``[d_in, d_out]`` applied as
 ``x @ w``, so a converted weight is the reference's array as it is.
 Compute dtype discipline as there: matmuls run in the parameter dtype;
 norms and rotary compute in float32 and cast back. The inits draw from an
 explicit ``torch.Generator``; they follow the reference's distributions,
 not its ``jax.random`` bits. GELU is the tanh form, as ``jax.nn.gelu``'s
-default (``approximate=True``). The chunked cross-entropy is a training
-entry point (ROADMAP queue 1 item 4).
+default (``approximate=True``). :func:`chunked_ce_loss` is the training
+loss of ``Transformer.train_forward``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # --------------------------------------------------------------------------
@@ -141,3 +142,46 @@ def apply_mlp(wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
               x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """``(act(x @ wg) * (x @ wu)) @ wd`` in the parameter dtype."""
     return (activation(act)(x @ wg) * (x @ wu)) @ wd
+
+
+# --------------------------------------------------------------------------
+# chunked cross-entropy (bounded logits footprint)
+# --------------------------------------------------------------------------
+def _chunk_nll(h: torch.Tensor, w_out: torch.Tensor, t: torch.Tensor,
+               m: torch.Tensor) -> torch.Tensor:
+    """Masked NLL summed over one chunk; its ``[B, C, V]`` logits in
+    float32 (the product in the hidden dtype, then cast)."""
+    logits = (h @ w_out).float()
+    lse = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return ((lse - gold) * m).sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, w_out: torch.Tensor,
+                    targets: torch.Tensor, mask: torch.Tensor,
+                    n_chunks: int = 0) -> torch.Tensor:
+    """Mean CE over ``[B, S]`` targets without materialising ``[B, S, V]``
+    logits: ``hidden [B, S, D]`` through ``w_out [D, V]`` in chunks of the
+    sequence, each under ``torch.utils.checkpoint`` so that backward
+    recomputes its logits instead of keeping them; the float32 sums
+    accumulate chunk by chunk, as the reference's scan carries them. The
+    reference's chunk count: ``n_chunks``, or with 0 enough that a chunk
+    holds about 2^28 logits, between 8 and 32; at most ``S``, then shrunk
+    to a divisor of ``S``."""
+    B, S, _ = hidden.shape
+    if n_chunks <= 0:
+        n_chunks = max(8, min(32, (B * S * w_out.shape[1] + (1 << 28) - 1)
+                               >> 28))
+    n = min(n_chunks, S)
+    while S % n:
+        n -= 1
+    C = S // n
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * C, (i + 1) * C)
+        m = mask[:, sl].float()
+        tot = tot + checkpoint(_chunk_nll, hidden[:, sl], w_out,
+                               targets[:, sl], m, use_reentrant=False)
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -6,14 +6,18 @@ conv over the sequence; data-dependent (dt, B, C) projections; the
 selective scan ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``,
 ``y_t = C_t h_t + D x_t``; gated output ``y * silu(z)``; out_proj.
 
-:func:`apply_mamba` always takes the reference's kernel route
+:func:`apply_mamba` (prefill) always takes the reference's kernel route
 (``REPRO_OPT=sscan_kernel``, ``models/mamba.py:88-104`` there): the (dt, B,
 C) projections for the whole sequence, then
 :func:`repro_torch.kernels.selective_scan.selective_scan` — the CUDA kernel
 for CUDA tensors, the step recurrence for CPU tensors — then the ``D`` skip
 term and the ``silu(z)`` gate; its final state is the decode carry. The
-reference's default lax.scan route computes the same function in chunks
-for training memory; the port has no training path.
+kernel is forward-only. :func:`apply_mamba_train` is the route of
+``Transformer.train_forward``: the reference's default route (without
+``mamba_dbc``), the same projections taken up front and the step
+recurrence run in chunks of :func:`_pick_chunk` steps, each under
+``torch.utils.checkpoint``, so that backward keeps only the chunks'
+boundary states. Plain PyTorch on both devices.
 
 Parameters are a mapping with the reference's leaf names and
 orientation (``[d_in, d_out]``): ``w_in [d, 2*di]``, ``conv [K, di]``,
@@ -28,6 +32,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.selective_scan import selective_scan
 
@@ -75,6 +80,14 @@ def mamba_init_(p: dict, gen: torch.Generator) -> dict:
     return p
 
 
+def _pick_chunk(S: int, target: int = 128) -> int:
+    """Largest divisor of S that is <= target (chunked-scan granularity)."""
+    c = min(S, target)
+    while S % c:
+        c -= 1
+    return c
+
+
 def _dbc(p: dict, xc: torch.Tensor, dt_rank: int, N: int):
     """conv'd activations -> (dt [.., di], B [.., N], C [.., N]) in f32."""
     dbc = (xc @ p["w_xdbc"]).float()
@@ -91,26 +104,68 @@ def _gate_out(p: dict, y_s: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
     return y @ p["w_out"]
 
 
-def apply_mamba(p: dict, x: torch.Tensor, d_state: int,
-                return_state: bool = False):
-    """Prefill: ``x [B,S,D] -> y [B,S,D]``; with ``return_state`` also the
-    decode carry ``{"conv": [B,K-1,di], "h": [B,di,N] f32}`` at step S."""
-    B, S, _ = x.shape
-    dt_rank = p["w_dt"].shape[0]
-    N = d_state
+def _conv_in(p: dict, x: torch.Tensor):
+    """x [B,S,D] -> (x after the causal conv and silu [B,S,di], z
+    [B,S,di], the conv's padded input)."""
+    S = x.shape[1]
     xi, z = (x @ p["w_in"]).chunk(2, dim=-1)                 # [B,S,di]
     K = p["conv"].shape[0]
     xpad = F.pad(xi, (0, 0, K - 1, 0))                       # causal pad on S
     xc = sum(xpad[:, k:k + S] * p["conv"][k] for k in range(K))
-    xc = F.silu(xc)
-    dt, bb, cc = _dbc(p, xc, dt_rank, N)
+    return F.silu(xc), z, xpad
+
+
+def apply_mamba(p: dict, x: torch.Tensor, d_state: int,
+                return_state: bool = False):
+    """Prefill: ``x [B,S,D] -> y [B,S,D]``; with ``return_state`` also the
+    decode carry ``{"conv": [B,K-1,di], "h": [B,di,N] f32}`` at step S."""
+    S = x.shape[1]
+    xc, z, xpad = _conv_in(p, x)
+    dt, bb, cc = _dbc(p, xc, p["w_dt"].shape[0], d_state)
     a = -torch.exp(p["a_log"])
     y_s, h_fin = selective_scan(dt, bb, cc, xc, a, return_state=True)
     out = _gate_out(p, y_s, xc, z, x.dtype)
     if not return_state:
         return out
-    conv_tail = xpad[:, S:S + K - 1]
+    conv_tail = xpad[:, S:S + p["conv"].shape[0] - 1]
     return out, {"conv": conv_tail.to(p["conv"].dtype), "h": h_fin}
+
+
+def _scan_chunk(h: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, x: torch.Tensor, a: torch.Tensor):
+    """The step recurrence over one chunk: ``h [B,di,N]``, dt/x
+    ``[B,C,di]``, b/c ``[B,C,N]`` -> (``h`` after the chunk, y
+    ``[B,C,di]``), in float32."""
+    ys = []
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t][..., None] * a)              # [B,di,N]
+        dbx = dt[:, t][..., None] * b[:, t][:, None, :] * x[:, t][..., None]
+        h = da * h + dbx
+        # C_t h_t as a product and a sum: torch's CPU einsum / bmm are
+        # many times slower at these small shapes
+        ys.append((h * c[:, t, None, :]).sum(-1))
+    return h, torch.stack(ys, 1)
+
+
+def apply_mamba_train(p: dict, x: torch.Tensor,
+                      d_state: int) -> torch.Tensor:
+    """Training: ``x [B,S,D] -> y [B,S,D]``, differentiable; the scan in
+    checkpointed chunks of :func:`_pick_chunk` steps."""
+    B, S, _ = x.shape
+    xc, z, _ = _conv_in(p, x)
+    dt, bb, cc = _dbc(p, xc, p["w_dt"].shape[0], d_state)
+    a = -torch.exp(p["a_log"])
+    xf = xc.float()
+    h = torch.zeros((B, xc.shape[-1], d_state), dtype=torch.float32,
+                    device=x.device)
+    C = _pick_chunk(S)
+    ys = []
+    for i in range(0, S, C):
+        sl = slice(i, i + C)
+        h, y = checkpoint(_scan_chunk, h, dt[:, sl], bb[:, sl], cc[:, sl],
+                          xf[:, sl], a, use_reentrant=False)
+        ys.append(y)
+    return _gate_out(p, torch.cat(ys, 1), xc, z, x.dtype)
 
 
 def mamba_state_init(batch: int, p: dict, d_state: int) -> dict:

@@ -11,8 +11,10 @@ parameters into this layout.
 Entry points, as the reference's: :meth:`Transformer.init_params`,
 :meth:`~Transformer.embed_tokens`, :meth:`~Transformer.lm_head`,
 :meth:`~Transformer.init_decode_state`, :meth:`~Transformer.decode_step`
-(one token + state -> logits + state) and :meth:`~Transformer.prefill`
-(tokens -> last logits + decode state). The decode state is
+(one token + state -> logits + state), :meth:`~Transformer.prefill`
+(tokens -> last logits + decode state) and
+:meth:`~Transformer.train_forward` (a batch -> the training loss, through
+autograd). The decode state is
 ``{"blocks": [one dict per layer], "pos": int}``: an attention layer holds
 its caches ``{"k", "v"}`` ``[B, T, Hkv, dh]``, a Mamba layer its carry
 ``{"conv" [B, K-1, di], "h" [B, di, N] float32}``, an mLSTM layer
@@ -33,23 +35,35 @@ rolling buffer of ``T = min(max_len, window)`` slots: token ``j`` lives at
 slot ``j % T``, prefill attention is masked to the window, and decode
 attends the whole buffer (it holds the window). Prefill attention goes
 through the flash-attention kernel on the card; Mamba prefill through the
-selective-scan kernel. Logit soft-capping raises ``NotImplementedError``
-(ROADMAP queue 1 item 6: the flash kernel has no soft-cap).
+selective-scan kernel. Both kernels are forward-only, so ``train_forward``
+takes the reference's differentiated routes instead,
+``attention.train_attention`` and ``mamba.apply_mamba_train``, and routes
+its MoE layers with capacity drops (``dropless=False``), adding their
+Switch aux loss as the reference's ``_block_apply`` does; each block runs
+under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference
+checkpoints each scan period). Its mLSTM / sLSTM layers raise
+``NotImplementedError`` (ROADMAP queue 1 item 4). Parameters are built
+with ``requires_grad=False``; a model for training turns it on
+(``build_model(..., trainable=True)``). Logit soft-capping raises
+``NotImplementedError`` (ROADMAP queue 1 item 6: the flash kernel has no
+soft-cap).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
-from .attention import blocked_attention, decode_attention
+from .attention import blocked_attention, decode_attention, train_attention
 from .config import ModelConfig
-from .layers import (apply_mlp, apply_norm, apply_rotary, dense_init_,
-                     embed_init_, mrope_angles, norm_init_, rope_angles)
-from .mamba import (apply_mamba, mamba_decode_step, mamba_init_,
-                    mamba_shapes, mamba_state_init)
+from .layers import (apply_mlp, apply_norm, apply_rotary, chunked_ce_loss,
+                     dense_init_, embed_init_, mrope_angles, norm_init_,
+                     rope_angles)
+from .mamba import (apply_mamba, apply_mamba_train, mamba_decode_step,
+                    mamba_init_, mamba_shapes, mamba_state_init)
 from .mamba import F32_LEAVES as MAMBA_F32
 from .moe import apply_moe
 from .xlstm import F32_LEAVES as XLSTM_F32
@@ -60,6 +74,8 @@ from .xlstm import (apply_mlstm, apply_slstm, mlstm_decode_step,
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    """A parameter of the serving paths: no grad until a trainer asks
+    (``build_model(..., trainable=True)``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -256,6 +272,12 @@ class MoE(nn.Module):
         decode."""
         return apply_moe(self.p(), x, self.top_k, self.capacity_factor,
                          self.act, dropless=True)[0]
+
+    def forward_train(self, x: torch.Tensor):
+        """Training routing: capacity drops, as the reference's
+        ``train_forward``; ``(y, Switch aux loss)``."""
+        return apply_moe(self.p(), x, self.top_k, self.capacity_factor,
+                         self.act, dropless=False)
 
 
 class Block(nn.Module):
@@ -455,3 +477,58 @@ class Transformer(nn.Module):
             x = blk.feed_forward(x + o)
         state["pos"] = S
         return self._logits(x[:, -1]), state
+
+    def _train_block(self, blk: Block, x: torch.Tensor, angles):
+        """One block as the reference's ``_block_apply`` for training:
+        ``(x, MoE aux loss)``."""
+        B, S = x.shape[:2]
+        y = blk.norm1(x)
+        mix = blk.kind["mix"]
+        if mix == "attn":
+            q, k, v = blk.mix.qkv(y, angles)
+            o = train_attention(q, k, v, window=self.cfg.sliding_window)
+            x = x + o.reshape(B, S, -1) @ blk.mix.wo
+        else:
+            x = x + apply_mamba_train(blk.mix.p(), y, blk.mix.d_state)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if isinstance(blk.ff, MoE):
+            o, aux = blk.ff.forward_train(blk.norm2(x))
+            x = x + o
+        else:
+            x = blk.feed_forward(x)
+        return x, aux
+
+    def train_forward(self, batch: dict) -> torch.Tensor:
+        """The training loss of ``batch``: ``tokens`` / ``targets`` /
+        ``mask [B, S]`` (and optionally ``embeds [B, S, D]``, a stub
+        frontend's, and M-RoPE's ``positions3 [3, B, S]``) -> the mean
+        masked next-token NLL over :func:`chunked_ce_loss` plus 0.01 times
+        the MoE layers' aux losses, a float32 0-dim tensor that autograd
+        differentiates. The trunk as the reference's ``forward_hidden``:
+        each block under ``torch.utils.checkpoint`` when ``cfg.remat``."""
+        cfg = self.cfg
+        recurrent = sorted({b.kind["mix"] for b in self.blocks}
+                           & {"mlstm", "slstm"})
+        if recurrent:
+            raise NotImplementedError(
+                f"{cfg.name}: training through {'/'.join(recurrent)} blocks "
+                "is not ported yet (ROADMAP queue 1 item 4)")
+        tokens = batch["tokens"].to(self.device)
+        S = tokens.shape[1]
+        x = (batch["embeds"].to(device=self.device, dtype=self.dtype)
+             if "embeds" in batch else self.embed_tokens(tokens))
+        positions3 = batch.get("positions3")
+        angles = self._angles(0, S, positions3)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for blk in self.blocks:
+            if cfg.remat:
+                x, a = checkpoint(self._train_block, blk, x, angles,
+                                  use_reentrant=False)
+            else:
+                x, a = self._train_block(blk, x, angles)
+            aux = aux + a
+        h = self.final_norm(x)
+        loss = chunked_ce_loss(h, self.lm_head(),
+                               batch["targets"].to(self.device),
+                               batch["mask"].to(self.device))
+        return loss + 0.01 * aux

@@ -1261,3 +1261,119 @@ def test_cuda_page_codec_equals_the_cpu(cuda, dtype):
         q, s = codec.compress_page(pages[i].to(cuda))
         wq, ws = codec.compress_page(pages[i])
         assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
+
+
+# --------------------------------------------------------------------------
+# the training side on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_forward_only_kernels_refuse_grad_inputs(cuda):
+    """flash_attention and selective_scan raise on CUDA inputs that require
+    grad under grad mode, naming the train route; under no_grad the same
+    inputs launch the kernels."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = [torch.randn((1, 64, 2, 64), generator=g, device=cuda,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    ss = [torch.rand((1, 32, 64), generator=g, device=cuda),
+          torch.randn((1, 32, 16), generator=g, device=cuda),
+          torch.randn((1, 32, 16), generator=g, device=cuda),
+          torch.randn((1, 32, 64), generator=g, device=cuda),
+          -torch.rand((64, 16), generator=g, device=cuda)]
+    for fn, args, route in ((flash_attention, qkv, "train_attention"),
+                            (selective_scan, ss, "apply_mamba_train")):
+        want = fn(*args)
+        for i in range(len(args)):
+            a = list(args)
+            a[i] = a[i].clone().requires_grad_(True)
+            with pytest.raises(RuntimeError, match=route):
+                fn(*a)
+            with torch.no_grad():
+                assert torch.equal(fn(*a), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "jamba_v01_52b"])
+def test_cuda_smoke_train_step_matches_the_cpu(cuda, arch, monkeypatch):
+    """One train step of the smoke config, f32 with TF32 off, on the card
+    and on the CPU from the same weights and batch: the loss within 1e-5
+    relative and every gradient within 1e-4 of its largest magnitude; then
+    AdamW from the same gradients on both, parameters and moments within
+    1e-6 of their largest magnitudes. (Adam's first step divides each
+    gradient by its own magnitude, so an update from each device's own
+    gradients turns their rounding into a sign's worth on elements near
+    eps: the update is held from equal gradients.)"""
+    from repro_torch import configs
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, param_tree
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.get_smoke_config(arch)
+    cpu = build_model(cfg, device="cpu", seed=0, trainable=True)
+    card = build_model(cfg, device=cuda, seed=None, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_pipeline(cfg.vocab_size, 2, 16, seed=1).peek(0)
+    losses = []
+    for model in (cpu, card):
+        loss = model.train_forward({k: torch.from_numpy(v).to(model.device)
+                                    for k, v in batch.items()})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    pairs = list(zip(cpu.parameters(), card.parameters()))
+    for p, q in pairs:
+        err = float((q.grad.cpu() - p.grad).abs().max())
+        assert err <= 1e-4 * float(p.grad.abs().max())
+        q.grad.copy_(p.grad)
+    init, update = make_optimizer("adamw", 1e-2)
+    states = []
+    for model in (cpu, card):
+        tree = param_tree(model)
+        state = init(tree)
+        update({k: [p.grad for p in parts] for k, parts in tree.items()},
+               state, tree, 0)
+        states.append(state)
+    for p, q in pairs:
+        err = float((q.detach().cpu() - p.detach()).abs().max())
+        assert err <= 1e-6 * float(p.detach().abs().max())
+    for key in ("m", "v"):
+        for k, parts in states[0][key].items():
+            for a, b in zip(parts, states[1][key][k]):
+                err = float((b.cpu() - a).abs().max())
+                assert err <= 1e-6 * float(a.abs().max()), (key, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "jamba_v01_52b"])
+def test_cuda_trainer_kill_and_restart_is_bitwise(cuda, arch, tmp_path,
+                                                  monkeypatch):
+    """The trainer CLI on the card (deterministic algorithms on): a
+    failure at step 6, a restore of the step-4 checkpoint, and the losses
+    bit for bit those of an uninterrupted run. The deterministic
+    algorithms ask for the cuBLAS workspace setting, which the trainer's
+    entry point sets; here the test does."""
+    from repro_torch.launch import train
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    args = ["--arch", arch, "--smoke", "--steps", "12", "--global-batch",
+            "4", "--seq-len", "16", "--log-every", "100"]
+    clean = train.main(args)["history"]
+    fail, make = {6: True}, train.make_pipeline
+
+    def failing(*a, **kw):
+        pipe = make(*a, **kw)
+        peek = pipe.peek
+
+        def once(step):
+            if fail.pop(step, False):
+                raise RuntimeError("injected failure")
+            return peek(step)
+
+        pipe.peek = once
+        return pipe
+
+    monkeypatch.setattr(train, "make_pipeline", failing)
+    got = train.main(args + ["--ckpt-dir", str(tmp_path), "--save-every",
+                             "4"])["history"]
+    assert not fail and got == clean[:6] + clean[4:]
+    assert not torch.are_deterministic_algorithms_enabled()
