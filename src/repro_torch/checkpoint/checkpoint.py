@@ -15,7 +15,10 @@ shape and dtype. bfloat16 leaves, which NumPy has no dtype for here, are
 saved as their 16-bit patterns (``int16``) with ``"dtype": "bfloat16"``
 in the index, and restore bit for bit. Restore copies each leaf into the
 matching tensor of a tree of the same structure, in place, so a model and
-its optimizer state are restored where they live.
+its optimizer state are restored where they live. With ``shardings``
+(the reference's elastic path) a leaf is instead laid out as a DTensor on
+the mesh and placements given for it, whatever mesh wrote the checkpoint
+(leaves are saved whole).
 
 Restart contract (``runtime.fault_tolerance``): ``latest_step`` +
 ``restore_checkpoint`` resume training bit-exact, since parameters,
@@ -96,11 +99,30 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def map_tree(tree, fn, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(dotted path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(v, fn, f"{prefix}{i}.")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
 @torch.no_grad()
-def restore_checkpoint(directory: str, step: int, tree_like):
+def restore_checkpoint(directory: str, step: int, tree_like,
+                       shardings: dict | None = None):
     """Copy the checkpoint of ``step`` into ``tree_like`` (a tree of the
     saved structure: the same leaf names and shapes), leaf by leaf in
-    place; returns ``(tree_like, extras)``."""
+    place; returns ``(tree, extras)``.
+
+    ``shardings`` maps a leaf's dotted path to ``(mesh, placements)``:
+    that leaf is read whole on every rank and becomes a DTensor of those
+    placements on the DeviceMesh ``mesh``, in the dtype of its
+    ``tree_like`` leaf, copied into it when that leaf is a DTensor too,
+    else put in its place in the returned tree (``tree_like``'s
+    structure)."""
     path = _path(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -108,6 +130,12 @@ def restore_checkpoint(directory: str, step: int, tree_like):
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"tree expects {len(leaves)}")
+    shardings = shardings or {}
+    unknown = set(shardings) - {name for name, _ in leaves}
+    if unknown:
+        raise ValueError(f"shardings for no leaf of the tree: "
+                         f"{sorted(unknown)}")
+    placed = {}
     for (name, like), entry in zip(leaves, manifest["index"]):
         if name != entry["name"] or list(like.shape) != entry["shape"]:
             raise ValueError(f"checkpoint leaf {entry['name']} "
@@ -116,7 +144,19 @@ def restore_checkpoint(directory: str, step: int, tree_like):
         t = torch.from_numpy(np.load(os.path.join(path, entry["file"])))
         if entry["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
-        like.copy_(t)
+        if name not in shardings:
+            like.copy_(t)
+            continue
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        mesh, placements = shardings[name]
+        dt = distribute_tensor(t.to(like.dtype), mesh, placements,
+                               src_data_rank=None)
+        if isinstance(like, DTensor):
+            like.copy_(dt)
+        else:
+            placed[name] = dt
+    if placed:
+        tree_like = map_tree(tree_like, lambda n, leaf: placed.get(n, leaf))
     return tree_like, manifest["extras"]
 
 

@@ -1,0 +1,136 @@
+"""Activation sharding hooks (SP): models call them, the launcher installs
+them.
+
+Counterpart of ``repro.distributed.activations``. Every hook is the
+identity by default, and on a tensor that is not a DTensor. The sharded
+train step (``launch.steps.make_sharded_train_step``) installs them as the
+reference's ``build_cell`` does for a train cell; on a DTensor an
+installed hook redistributes it (differentiably: backward redistributes
+the gradient back), as ``with_sharding_constraint`` pins an XLA array:
+
+* :func:`activation_constraint`: the trunk's residual stream ``[B, S, D]``
+  at every period boundary (and each encoder-decoder block's output);
+* :func:`attn_constraint`: q / k / v before attention;
+* :func:`matmul_input_constraint`: a block's normed input before its
+  weight products, and each branch output before the residual add (its
+  gradient then reaches the products gathered on the sequence);
+* :func:`decode_logits_constraint`: decode attention's logits
+  ``[B, Hkv, G, T]``.
+
+The port calls the last three wherever the reference's perf flags would
+(``attn_reshard``, ``mm_gather``, ``decode_tsh``), whatever the flags:
+an uninstalled hook changes nothing, and an installed one changes only
+the layout, not a value.
+"""
+
+from __future__ import annotations
+
+import threading
+
+_state = threading.local()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def set_activation_sharding(mesh, placements) -> None:
+    """Install (or clear, with ``placements=None``) the trunk activation
+    constraint: ``placements`` one a mesh dim."""
+    _state.value = None if placements is None else (mesh, tuple(placements))
+
+
+def activation_constraint(x):
+    """Apply the installed constraint to a ``[B, S, D]`` DTensor."""
+    sh = getattr(_state, "value", None)
+    if sh is None or x.dim() != 3 or not is_dtensor(x):
+        return x
+    return x.redistribute(*sh)
+
+
+def set_attn_sharding(fn) -> None:
+    """Install a ``(q, k, v) -> (q, k, v)`` resharding hook (``None``
+    clears it)."""
+    _state.attn = fn
+
+
+def attn_constraint(q, k, v):
+    fn = getattr(_state, "attn", None)
+    if fn is None or not is_dtensor(q):
+        return q, k, v
+    return fn(q, k, v)
+
+
+def set_matmul_input_sharding(fn) -> None:
+    """Install the pre-matmul activation constraint (``None`` clears
+    it)."""
+    _state.mm = fn
+
+
+def matmul_input_constraint(y):
+    fn = getattr(_state, "mm", None)
+    return y if fn is None or not is_dtensor(y) else fn(y)
+
+
+def set_decode_logits_sharding(fn) -> None:
+    """Install a constraint for decode attention's logits ``[B, Hkv, G,
+    T]`` (``None`` clears it)."""
+    _state.decode_logits = fn
+
+
+def decode_logits_constraint(s):
+    fn = getattr(_state, "decode_logits", None)
+    return s if fn is None or not is_dtensor(s) else fn(s)
+
+
+def replicate(x):
+    """A DTensor redistributed to ``Replicate()`` on every mesh dim (the
+    all-gather or all-reduce GSPMD would insert); any other tensor as it
+    is. For the ops of the train route whose sharded form DTensor lacks
+    or gets wrong (``launch.steps`` names them)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def on_shards(tensors, dims: tuple, divides=None):
+    """Hand DTensors to code that runs on each rank's own shards, as
+    GSPMD runs an op that is independent along some dims (attention over
+    batch and heads, a recurrence over batch rows and heads).
+
+    ``tensors`` are redistributed to the placements of the first, with
+    only its shards of tensor dims ``dims`` kept (``divides(placements)``
+    may narrow them: it returns the dims to keep). Returns ``(local
+    tensors, wrap)``, where ``wrap(local, shape)`` is the DTensor of those
+    placements and global ``shape``. The local code reads no parameter:
+    a gradient it makes is its rank's own. Tensors that are not DTensors
+    pass through, and ``wrap`` is the identity."""
+    if not tensors or not is_dtensor(tensors[0]):
+        return list(tensors), lambda t, shape: t
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = tensors[0].device_mesh
+    keep = lambda pl, ds: [p if p.is_shard() and p.dim in ds
+                           else Replicate() for p in pl]
+    pl = keep(tensors[0].placements, dims)
+    if divides is not None:
+        pl = keep(pl, divides(pl))
+    loc = [t.redistribute(mesh, pl).to_local() for t in tensors]
+
+    def wrap(t, shape):
+        full = torch.empty(shape, device="meta")
+        return DTensor.from_local(t.contiguous(), mesh, pl,
+                                  shape=full.shape, stride=full.stride())
+
+    return loc, wrap
+
+
+def clear_hooks() -> None:
+    """Clear every installed hook."""
+    set_activation_sharding(None, None)
+    for setter in (set_attn_sharding, set_matmul_input_sharding,
+                   set_decode_logits_sharding):
+        setter(None)

@@ -26,7 +26,12 @@ no soft-cap; ROADMAP queue 1 item 6).
   (masked where inactive) in float32 with ``q`` pre-scaled. Plain
   PyTorch on both devices, as the reference's is jnp: autograd
   differentiates it, and backward recomputes one query chunk's sweep at a
-  time.
+  time. On DTensors (the sharded train step) it runs on each rank's
+  shards, as GSPMD runs the reference's head-sharded attention: q / k /
+  v keep their batch and head shards (the heads' only where they split
+  the KV heads evenly), gather the sequence and head width, and each
+  rank attends its own rows and heads; the result is a DTensor of q's
+  placements.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.activations import (decode_logits_constraint,
+                                                 is_dtensor, on_shards)
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
@@ -96,6 +103,17 @@ def _attention_q_chunk(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
+def _split_heads(k: torch.Tensor):
+    """The tensor dims q / k / v keep sharded on their ranks: batch, and
+    the heads where their split divides the KV heads evenly."""
+    def divides(pl) -> tuple:
+        split = 1
+        for i, p in enumerate(pl):
+            split *= k.device_mesh.size(i) if p.is_shard(2) else 1
+        return (0,) if k.shape[2] % split else (0, 2)
+    return divides
+
+
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, window: int = 0,
                     block_q: int = 1024, block_k: int = 512) -> torch.Tensor:
@@ -104,6 +122,12 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype: causal, ``window`` > 0 to a sliding window, or with
     ``causal=False`` bidirectional. ``block_k`` halves until it divides
     ``Sk`` and ``block_q`` until it divides ``Sq``, as the reference's."""
+    if is_dtensor(q):
+        (q_, k_, v_), wrap = on_shards((q, k, v), (0, 2),
+                                       divides=_split_heads(k))
+        return wrap(train_attention(q_, k_, v_, causal=causal,
+                                    window=window, block_q=block_q,
+                                    block_k=block_k), q.shape)
     B, Sq, Hq, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     while Sk % block_k:
@@ -125,12 +149,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: int | torch.Tensor) -> torch.Tensor:
     """Single-position attention: q [B,1,Hq,dh] vs cache k/v [B,T,Hkv,dh].
 
-    ``length`` (int or ``[B]`` tensor) masks the valid cache prefix.
+    ``length`` (int or ``[B]`` tensor) masks the valid cache prefix. The
+    logits ``[B, Hkv, G, T]`` pass ``decode_logits_constraint`` (the
+    identity unless a launcher installs it).
     """
     B, _, Hq, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     qg = _split_gqa(q, Hkv)[:, 0].float()                 # [B,Hkv,G,dh]
-    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) / math.sqrt(dh)
+    s = decode_logits_constraint(
+        torch.einsum("bkgd,btkd->bkgt", qg, k.float())) / math.sqrt(dh)
     tpos = torch.arange(T, device=q.device)[None, :]
     # a host int compares as a scalar: no host-to-device copy per step
     ln = length[:, None] if torch.is_tensor(length) else length

@@ -17,9 +17,21 @@ The decode state is the reference's: ``{"self_kv": {"k", "v"} [L, B,
 max_len, Hkv, dh], "cross_kv": {"k", "v"} [L, B, Se, Hkv, dh], "pos"}``.
 The cross K/V are computed once at prefill and stay static;
 :meth:`EncDec.decode_step` writes the token's self K/V in place and
-advances the host int ``pos``, as :class:`Transformer` does. Training
-(the reference's ``train_forward``) is not ported yet:
-:meth:`EncDec.train_forward` raises (ROADMAP queue 1 item 4).
+advances the host int ``pos``, as :class:`Transformer` does.
+
+:meth:`EncDec.train_forward` is the reference's: ``encode``, then the
+decoder's hidden states, then ``chunked_ce_loss`` over the tied or untied
+head, through autograd. The flash kernel is forward-only, so training
+takes ``attention.train_attention`` for both self-attentions and the
+cross-attention (the reference differentiates its jnp
+``blocked_attention`` and ``full_attention``, the same functions), and
+each encoder and decoder block runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set. ``batch["frames"]`` is the stub frontend's ``[B, S,
+D]``; a batch without it raises ``KeyError``, as the reference's does
+(its train CLI's pipeline gives none). Each block's output goes through
+``activation_constraint`` (the identity unless the sharded train step
+installs it), as the reference's ``encode`` and ``decode_hidden`` pin
+theirs.
 """
 
 from __future__ import annotations
@@ -27,13 +39,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
+from torch.utils.checkpoint import checkpoint
 
-from .attention import blocked_attention, decode_attention
+from repro_torch.device import resolve_device
+from repro_torch.distributed.activations import activation_constraint
+
+from .attention import blocked_attention, decode_attention, train_attention
 from .config import ModelConfig
-from .layers import dense_init_, embed_init_, rope_angles
+from .layers import chunked_ce_loss, dense_init_, embed_init_, rope_angles
 from .transformer import (MLP, Attention, Norm, _dtype, _param,
-                          check_supported)
+                          check_supported, param_specs)
 
 
 class EncBlock(nn.Module):
@@ -52,12 +67,15 @@ class EncBlock(nn.Module):
         self.attn.init_params(gen)
         self.ff.init_params(gen)
 
-    def forward(self, x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, angles: torch.Tensor,
+                attend=blocked_attention) -> torch.Tensor:
+        """The block, its bidirectional attention through ``attend``
+        (``train_attention`` on the train route)."""
         B, S = x.shape[:2]
         q, k, v = self.attn.qkv(self.norm1(x), angles)
-        o = blocked_attention(q, k, v, causal=False)
+        o = attend(q, k, v, causal=False)
         x = x + o.reshape(B, S, -1) @ self.attn.wo
-        return x + self.ff(self.norm2(x))
+        return activation_constraint(x + self.ff(self.norm2(x)))
 
 
 class DecBlock(nn.Module):
@@ -98,6 +116,9 @@ class EncDec(nn.Module):
     """The encoder-decoder LM of ``cfg`` (``family="encdec"``), parameters
     in ``cfg.dtype`` on ``device`` (``None``: CUDA)."""
 
+    SPECS = {"in_proj": ("embed", "embed"), "embed": ("vocab", "embed"),
+             "lm_head_w": ("embed", "vocab")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         cfg.validate()
@@ -128,6 +149,11 @@ class EncDec(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def param_specs(self) -> dict:
+        """Parameter name -> the reference's logical axes
+        (``transformer.param_specs``)."""
+        return param_specs(self)
+
     def init_params(self, gen: torch.Generator) -> "EncDec":
         """Fill every parameter from ``gen``: the reference's
         distributions, as :meth:`Transformer.init_params`."""
@@ -148,12 +174,46 @@ class EncDec(nn.Module):
         pos = torch.arange(start, start + n, device=self.device)
         return rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
 
+    def _dec_train_block(self, blk: DecBlock, x: torch.Tensor,
+                         enc_out: torch.Tensor,
+                         angles: torch.Tensor) -> torch.Tensor:
+        """One decoder block as the reference's ``_dec_block``,
+        differentiable."""
+        B, S = x.shape[:2]
+        q, k, v = blk.self_attn.qkv(blk.norm1(x), angles)
+        o = train_attention(q, k, v)
+        x = x + o.reshape(B, S, -1) @ blk.self_attn.wo
+        kx, vx = blk.cross.kv(enc_out)
+        x = blk.cross_ff(x, lambda qx: train_attention(qx, kx, vx,
+                                                       causal=False))
+        return activation_constraint(x)
+
+    def _run(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when
+        ``cfg.remat``."""
+        if self.cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def train_forward(self, batch: dict) -> torch.Tensor:
-        """Not ported yet: the encoder-decoder's train route is the next
-        part of the training side."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: encoder-decoder training is not ported yet "
-            "(ROADMAP queue 1 item 4)")
+        """The training loss of ``batch``: ``frames [B, Se, D]``,
+        ``tokens`` / ``targets`` / ``mask [B, S]`` -> the mean masked
+        next-token NLL (:func:`chunked_ce_loss`), a float32 0-dim tensor
+        that autograd differentiates."""
+        x = batch["frames"].to(device=self.device,
+                               dtype=self.dtype) @ self.in_proj
+        angles = self._angles(0, x.shape[1])
+        for blk in self.enc:
+            x = self._run(blk, x, angles, train_attention)
+        enc_out = self.enc_norm(x)
+        tokens = batch["tokens"].to(self.device)
+        x = self.embed[tokens.long()]
+        angles = self._angles(0, tokens.shape[1])
+        for blk in self.dec:
+            x = self._run(self._dec_train_block, blk, x, enc_out, angles)
+        return chunked_ce_loss(self.final_norm(x), self.lm_head(),
+                               batch["targets"].to(self.device),
+                               batch["mask"].to(self.device))
 
     @torch.no_grad()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:

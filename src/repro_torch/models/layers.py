@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.activations import replicate
+
 
 # --------------------------------------------------------------------------
 # param inits (in place, from a generator on the tensor's device)
@@ -150,10 +152,13 @@ def apply_mlp(wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
 def _chunk_nll(h: torch.Tensor, w_out: torch.Tensor, t: torch.Tensor,
                m: torch.Tensor) -> torch.Tensor:
     """Masked NLL summed over one chunk; its ``[B, C, V]`` logits in
-    float32 (the product in the hidden dtype, then cast)."""
+    float32 (the product in the hidden dtype, then cast). On
+    vocab-sharded DTensor logits the gathered target logits are
+    replicated before the select (``distributed.activations.replicate``):
+    DTensor's masked partial of a gather is mis-reduced after it."""
     logits = (h @ w_out).float()
     lse = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    gold = replicate(torch.gather(logits, -1, t[..., None].long()))[..., 0]
     return ((lse - gold) * m).sum()
 
 

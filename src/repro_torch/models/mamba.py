@@ -38,6 +38,11 @@ from repro_torch.kernels.selective_scan import selective_scan
 
 #: parameter leaves kept in float32 whatever the model dtype
 F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+#: each leaf's logical axes (the reference's ``mamba_init`` specs)
+MAMBA_SPECS = {"w_in": ("embed", "inner"), "w_xdbc": ("inner", None),
+               "w_dt": (None, "inner"), "w_out": ("inner", "embed"),
+               "conv": (None, "inner"), "a_log": ("inner", None),
+               "dt_bias": ("inner",), "d_skip": ("inner",)}
 
 
 def mamba_dims(d_model: int, expand: int, d_state: int):

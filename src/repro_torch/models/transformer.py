@@ -37,13 +37,19 @@ attends the whole buffer (it holds the window). Prefill attention goes
 through the flash-attention kernel on the card; Mamba prefill through the
 selective-scan kernel. Both kernels are forward-only, so ``train_forward``
 takes the reference's differentiated routes instead,
-``attention.train_attention`` and ``mamba.apply_mamba_train``, and routes
+``attention.train_attention``, ``mamba.apply_mamba_train``,
+``xlstm.apply_mlstm_train`` and ``xlstm.apply_slstm_train``, and routes
 its MoE layers with capacity drops (``dropless=False``), adding their
 Switch aux loss as the reference's ``_block_apply`` does; each block runs
 under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference
-checkpoints each scan period). Its mLSTM / sLSTM layers raise
-``NotImplementedError`` (ROADMAP queue 1 item 4). Parameters are built
-with ``requires_grad=False``; a model for training turns it on
+checkpoints each scan period). The trunk calls the sharding hooks of
+:mod:`repro_torch.distributed.activations` at the reference's sites (the
+normed input of each block's products, q / k / v, the residual stream at
+each period boundary) and on each branch output before the residual
+add; they are the identity unless the sharded train step installs
+them. :func:`param_specs` gives each parameter the
+reference's logical axes, without its leading ``"layers"``. Parameters
+are built with ``requires_grad=False``; a model for training turns it on
 (``build_model(..., trainable=True)``). Logit soft-capping raises
 ``NotImplementedError`` (ROADMAP queue 1 item 6: the flash kernel has no
 soft-cap).
@@ -56,21 +62,27 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.activations import (activation_constraint,
+                                                 attn_constraint,
+                                                 matmul_input_constraint,
+                                                 replicate)
 
 from .attention import blocked_attention, decode_attention, train_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, apply_rotary, chunked_ce_loss,
                      dense_init_, embed_init_, mrope_angles, norm_init_,
                      rope_angles)
-from .mamba import (apply_mamba, apply_mamba_train, mamba_decode_step,
-                    mamba_init_, mamba_shapes, mamba_state_init)
+from .mamba import (MAMBA_SPECS, apply_mamba, apply_mamba_train,
+                    mamba_decode_step, mamba_init_, mamba_shapes,
+                    mamba_state_init)
 from .mamba import F32_LEAVES as MAMBA_F32
 from .moe import apply_moe
 from .xlstm import F32_LEAVES as XLSTM_F32
-from .xlstm import (apply_mlstm, apply_slstm, mlstm_decode_step,
-                    mlstm_init_, mlstm_shapes, mlstm_state_init,
-                    slstm_decode_step, slstm_init_, slstm_shapes,
-                    slstm_state_init)
+from .xlstm import (MLSTM_SPECS, SLSTM_SPECS, apply_mlstm,
+                    apply_mlstm_train, apply_slstm, apply_slstm_train,
+                    mlstm_decode_step, mlstm_init_, mlstm_shapes,
+                    mlstm_state_init, slstm_decode_step, slstm_init_,
+                    slstm_shapes, slstm_state_init)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -92,6 +104,19 @@ def check_supported(cfg: ModelConfig) -> None:
             "flash kernel has no soft-cap (ROADMAP queue 1 item 6)")
 
 
+def param_specs(model: nn.Module) -> dict:
+    """Parameter name -> the reference's logical axes of that leaf,
+    without the leading ``"layers"`` of a stacked one, in
+    ``named_parameters`` order: each module that holds parameters names
+    their axes in its ``SPECS``."""
+    owner = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            owner[f"{mname}.{pname}" if mname else pname] = \
+                mod.SPECS[pname]
+    return {name: owner[name] for name, _ in model.named_parameters()}
+
+
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
     """Slots of an attention layer's cache: ``max_len``, or the rolling
     buffer's ``min(max_len, window)`` under a sliding window."""
@@ -102,6 +127,8 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 class Norm(nn.Module):
     """RMSNorm with a ``scale [d]``, or LayerNorm with a ``bias [d]`` as
     well (``cfg.norm``)."""
+
+    SPECS = {"scale": ("embed",), "bias": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -120,6 +147,10 @@ class Norm(nn.Module):
 class Attention(nn.Module):
     """``wq [d, Hq*dh]``, ``wk``/``wv [d, Hkv*dh]``, ``wo [Hq*dh, d]``
     (``[d_in, d_out]``), with the QKV biases when the config has them."""
+
+    SPECS = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+             "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -176,6 +207,9 @@ class MLP(nn.Module):
     ``wd [ff, d]``; ``ff`` is ``cfg.d_ff`` unless given (a MoE's shared
     expert)."""
 
+    SPECS = {"wg": ("embed", "ff"), "wu": ("embed", "ff"),
+             "wd": ("ff", "embed")}
+
     def __init__(self, cfg: ModelConfig, dtype, device,
                  ff: int | None = None):
         super().__init__()
@@ -197,13 +231,14 @@ class Leaves(nn.Module):
     """A mixer held as named leaves (:mod:`.mamba`, :mod:`.xlstm`), in the
     model dtype but ``f32`` (those kept float32); ``p()`` hands them to the
     module's functions as a mapping, ``init_params`` fills them with
-    ``init_``."""
+    ``init_``; ``specs`` are their logical axes."""
 
-    def __init__(self, shapes: dict, f32: tuple, init_, dtype, device,
-                 **attrs):
+    def __init__(self, shapes: dict, f32: tuple, init_, specs: dict, dtype,
+                 device, **attrs):
         super().__init__()
         self.names = tuple(shapes)
         self._init = init_
+        self.SPECS = specs
         for name, sh in shapes.items():
             setattr(self, name, _param(
                 sh, torch.float32 if name in f32 else dtype, device))
@@ -225,14 +260,14 @@ def mixer(cfg: ModelConfig, mix: str, dtype, device) -> nn.Module:
     if mix == "mamba":
         return Leaves(mamba_shapes(d, cfg.mamba_expand, cfg.mamba_d_state,
                                    cfg.mamba_d_conv), MAMBA_F32, mamba_init_,
-                      dtype, device, d_state=cfg.mamba_d_state)
+                      MAMBA_SPECS, dtype, device, d_state=cfg.mamba_d_state)
     if mix == "mlstm":
         return Leaves(mlstm_shapes(d, cfg.n_heads, cfg.xlstm_proj_factor,
                                    cfg.xlstm_conv), XLSTM_F32, mlstm_init_,
-                      dtype, device)
+                      MLSTM_SPECS, dtype, device)
     if mix == "slstm":
         return Leaves(slstm_shapes(d, cfg.n_heads), XLSTM_F32, slstm_init_,
-                      dtype, device)
+                      SLSTM_SPECS, dtype, device)
     raise ValueError(f"unknown mixer {mix!r}")
 
 
@@ -240,6 +275,12 @@ class MoE(nn.Module):
     """Router ``wr [d, E]`` and experts ``wg`` / ``wu [E, d, F]``,
     ``wd [E, F, d]`` (:mod:`.moe`); with ``n_shared_experts`` a ``shared``
     :class:`MLP` of width ``F * n_shared_experts``."""
+
+    # EP x FSDP: experts over 'model', the expert ff dim over 'data'
+    SPECS = {"wr": ("embed", "experts"),
+             "wg": ("experts", None, "expert_ff"),
+             "wu": ("experts", None, "expert_ff"),
+             "wd": ("experts", "expert_ff", None)}
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -312,6 +353,8 @@ class Transformer(nn.Module):
     ``device`` (``None``: CUDA), left uninitialised until
     :meth:`init_params` or a conversion fills them."""
 
+    SPECS = {"embed": ("vocab", "embed"), "lm_head_w": ("embed", "vocab")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         cfg.validate()
@@ -337,6 +380,10 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def param_specs(self) -> dict:
+        """:func:`param_specs` of this model."""
+        return param_specs(self)
+
     def init_params(self, gen: torch.Generator) -> "Transformer":
         """Fill every parameter from ``gen`` (a generator on the model's
         device): embedding N(0, 0.02), dense weights truncated normal at
@@ -351,7 +398,10 @@ class Transformer(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()]
+        """The embedding rows of ``tokens``; sharded token ids are
+        replicated first (PyTorch 2.11's DTensor has no strategy for the
+        lookup's backward, an ``index_put``, over batch-sharded ids)."""
+        return self.embed[replicate(tokens.long())]
 
     def lm_head(self) -> torch.Tensor:
         """``[d, V]``: the tied embedding's transpose or the head weight."""
@@ -482,20 +532,27 @@ class Transformer(nn.Module):
         """One block as the reference's ``_block_apply`` for training:
         ``(x, MoE aux loss)``."""
         B, S = x.shape[:2]
-        y = blk.norm1(x)
+        y = matmul_input_constraint(blk.norm1(x))
         mix = blk.kind["mix"]
         if mix == "attn":
-            q, k, v = blk.mix.qkv(y, angles)
+            q, k, v = attn_constraint(*blk.mix.qkv(y, angles))
             o = train_attention(q, k, v, window=self.cfg.sliding_window)
-            x = x + o.reshape(B, S, -1) @ blk.mix.wo
+            o = o.reshape(B, S, -1) @ blk.mix.wo
+        elif mix == "mamba":
+            o = apply_mamba_train(blk.mix.p(), y, blk.mix.d_state)
+        elif mix == "mlstm":
+            o = apply_mlstm_train(blk.mix.p(), y)
         else:
-            x = x + apply_mamba_train(blk.mix.p(), y, blk.mix.d_state)
+            o = apply_slstm_train(blk.mix.p(), y)
+        x = x + matmul_input_constraint(o)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if isinstance(blk.ff, MoE):
-            o, aux = blk.ff.forward_train(blk.norm2(x))
-            x = x + o
-        else:
-            x = blk.feed_forward(x)
+        if blk.ff is not None:
+            y2 = matmul_input_constraint(blk.norm2(x))
+            if isinstance(blk.ff, MoE):
+                o, aux = blk.ff.forward_train(y2)
+            else:
+                o = blk.ff(y2)
+            x = x + matmul_input_constraint(o)
         return x, aux
 
     def train_forward(self, batch: dict) -> torch.Tensor:
@@ -505,14 +562,10 @@ class Transformer(nn.Module):
         masked next-token NLL over :func:`chunked_ce_loss` plus 0.01 times
         the MoE layers' aux losses, a float32 0-dim tensor that autograd
         differentiates. The trunk as the reference's ``forward_hidden``:
-        each block under ``torch.utils.checkpoint`` when ``cfg.remat``."""
+        each block under ``torch.utils.checkpoint`` when ``cfg.remat``, the
+        activation constraint at each period boundary."""
         cfg = self.cfg
-        recurrent = sorted({b.kind["mix"] for b in self.blocks}
-                           & {"mlstm", "slstm"})
-        if recurrent:
-            raise NotImplementedError(
-                f"{cfg.name}: training through {'/'.join(recurrent)} blocks "
-                "is not ported yet (ROADMAP queue 1 item 4)")
+        P = cfg.scan_period()
         tokens = batch["tokens"].to(self.device)
         S = tokens.shape[1]
         x = (batch["embeds"].to(device=self.device, dtype=self.dtype)
@@ -520,13 +573,15 @@ class Transformer(nn.Module):
         positions3 = batch.get("positions3")
         angles = self._angles(0, S, positions3)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
             if cfg.remat:
                 x, a = checkpoint(self._train_block, blk, x, angles,
                                   use_reentrant=False)
             else:
                 x, a = self._train_block(blk, x, angles)
             aux = aux + a
+            if (i + 1) % P == 0:
+                x = activation_constraint(x)
         h = self.final_norm(x)
         loss = chunked_ce_loss(h, self.lm_head(),
                                batch["targets"].to(self.device),

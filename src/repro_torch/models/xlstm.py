@@ -15,13 +15,23 @@ at 0 (not -inf), as there::
 * sLSTM: four gates (z, i, f, o) at model width from the input projection
   ``w [d, 4d]`` plus a per-head recurrence ``r [4, H, dh, dh]``.
 
-The reference's prefill is a chunked ``lax.scan`` with remat, a training
-device; prefill here is a plain loop over time (the projections, conv and
-gates computed for the whole sequence first), as :func:`apply_mamba`
-leaves its chunked route out. The recurrences run in float32. Parameters
-are mappings with the reference's leaf names and orientation
-(``[d_in, d_out]``); :data:`F32_LEAVES` stay float32 whatever the model
-dtype.
+The reference runs prefill and training through one chunked ``lax.scan``
+with remat. Here prefill (:func:`apply_mlstm`, :func:`apply_slstm`) is a
+plain loop over time (the projections, conv and gates computed for the
+whole sequence first), and the train route (:func:`apply_mlstm_train`,
+:func:`apply_slstm_train`, for ``Transformer.train_forward``) runs the same
+loop in chunks of ``mamba._pick_chunk(S)`` steps, each under
+``torch.utils.checkpoint``, so that backward keeps the ``[B, H, dh, dh]``
+matrix memory only at chunk boundaries, as the reference's
+``jax.checkpoint`` on its chunk does. The recurrences run in float32,
+each step in few ops (the outer product and the reads of ``C`` as a
+broadcast product and a batched matmul; the inputs unbound once a
+chunk): a step's host dispatch, not its bytes, is its cost. The floors
+``max(., 1)`` are ``torch.maximum``, whose gradient splits at a tie as
+``jnp.maximum``'s does (an sLSTM normaliser is exactly 1 whenever the
+input gate wins the first step). Parameters are mappings with the
+reference's leaf names and orientation (``[d_in, d_out]``);
+:data:`F32_LEAVES` stay float32 whatever the model dtype.
 """
 
 from __future__ import annotations
@@ -30,9 +40,23 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.activations import on_shards
+
+from .mamba import _pick_chunk
 
 #: parameter leaves kept in float32 whatever the model dtype
 F32_LEAVES = ("f_bias", "i_bias", "skip", "bias")
+#: each leaf's logical axes (the reference's ``mlstm_init`` /
+#: ``slstm_init`` specs)
+MLSTM_SPECS = {"w_up": ("embed", "inner"), "w_q": ("heads", None, None),
+               "w_k": ("heads", None, None), "w_v": ("heads", None, None),
+               "w_if": ("inner", None), "w_o": ("inner", "inner"),
+               "w_dn": ("inner", "embed"), "conv": (None, "inner"),
+               "f_bias": (None,), "i_bias": (None,), "skip": ("inner",)}
+SLSTM_SPECS = {"w": ("embed", None), "r": (None, None, None, None),
+               "w_dn": ("embed", "embed"), "bias": (None,)}
 
 
 # --------------------------------------------------------------------------
@@ -94,17 +118,39 @@ def _mlstm_gates(p: dict, xc: torch.Tensor):
     return i_raw + p["i_bias"], f_raw + p["f_bias"]
 
 
-def _mlstm_cell(C, n, m, q, k, v, i_raw, f_raw):
-    """One step of the matrix memory: ``(h [B,H,dh], C, n, m)``."""
+def _one(x: torch.Tensor) -> torch.Tensor:
+    """The 0-dim 1 of ``x``'s dtype and device: the floor of
+    ``torch.maximum(., one)``, which takes ``jnp.maximum``'s gradient at
+    a tie (half)."""
+    return torch.ones((), dtype=x.dtype, device=x.device)
+
+
+def _mlstm_cell(C, n, m, q, k, v, i_raw, f_raw, one=None):
+    """One step of the matrix memory: ``(h [B,H,dh], C, n, m)``; ``one``
+    is :func:`_one` (made here when not given)."""
+    one = _one(C) if one is None else one
     m_new = torch.maximum(f_raw + m, i_raw)
-    i_g = torch.exp(i_raw - m_new)
-    f_g = torch.exp(f_raw + m - m_new)
-    C = f_g[..., None, None] * C \
-        + i_g[..., None, None] * torch.einsum("bhk,bhv->bhkv", k, v)
-    n = f_g[..., None] * n + i_g[..., None] * k
-    num = torch.einsum("bhkv,bhk->bhv", C, q)
-    den = torch.clamp(torch.einsum("bhk,bhk->bh", n, q).abs(), min=1.0)
+    i_g = torch.exp(i_raw - m_new)[..., None]
+    f_g = torch.exp(f_raw + m - m_new)[..., None]
+    C = f_g[..., None] * C + i_g[..., None] * (k[..., :, None]
+                                               * v[..., None, :])
+    n = f_g * n + i_g * k
+    num = (q[..., None, :] @ C)[..., 0, :]
+    den = torch.maximum((n * q).sum(-1).abs(), one)
     return num / den[..., None], C, n, m_new
+
+
+def _mlstm_scan(C, n, m, q, k, v, i_raw, f_raw):
+    """The cell over every step of ``q``/``k``/``v [B,T,H,dh]`` and the
+    gates ``[B,T,H]``: ``(h [B,T,H,dh], C, n, m)``. The inputs are
+    unbound once, so that backward stacks their gradients once instead
+    of a full-size zero tensor a step."""
+    one, hs = _one(C), []
+    for qt, kt, vt, it, ft in zip(*(t.unbind(1) for t in
+                                    (q, k, v, i_raw, f_raw))):
+        h, C, n, m = _mlstm_cell(C, n, m, qt, kt, vt, it, ft, one)
+        hs.append(h)
+    return torch.stack(hs, 1), C, n, m
 
 
 def _mlstm_out(p: dict, h, xc, o, gate, dtype):
@@ -113,11 +159,10 @@ def _mlstm_out(p: dict, h, xc, o, gate, dtype):
     return (h * F.silu(gate.float())).to(dtype) @ p["w_dn"]
 
 
-def apply_mlstm(p: dict, x: torch.Tensor, return_state: bool = False):
-    """Prefill: ``x [B,S,D] -> [B,S,D]``; with ``return_state`` also the
-    decode carry ``{"conv" [B,K-1,di], "C" [B,H,dh,dh], "n" [B,H,dh],
-    "m" [B,H]}`` (float32 but ``conv``) at step S."""
-    B, S, _ = x.shape
+def _mlstm_in(p: dict, x: torch.Tensor):
+    """The whole sequence's inputs of the recurrence: ``(apad, xc, gate,
+    (q, k, v, i_raw, f_raw), o)``."""
+    S = x.shape[1]
     a, gate = (x @ p["w_up"]).chunk(2, dim=-1)              # [B,S,di]
     K = p["conv"].shape[0]
     apad = F.pad(a, (0, 0, K - 1, 0))                        # causal pad
@@ -125,19 +170,45 @@ def apply_mlstm(p: dict, x: torch.Tensor, return_state: bool = False):
     q, k, v = _mlstm_qkv(p, xc, a)                           # [B,S,H,dh]
     i_raw, f_raw = _mlstm_gates(p, xc)                       # [B,S,H]
     o = torch.sigmoid((xc @ p["w_o"]).float())
+    return apad, xc, gate, (q, k, v, i_raw, f_raw), o
+
+
+def apply_mlstm(p: dict, x: torch.Tensor, return_state: bool = False):
+    """Prefill: ``x [B,S,D] -> [B,S,D]``; with ``return_state`` also the
+    decode carry ``{"conv" [B,K-1,di], "C" [B,H,dh,dh], "n" [B,H,dh],
+    "m" [B,H]}`` (float32 but ``conv``) at step S."""
+    B, S, _ = x.shape
+    apad, xc, gate, seq, o = _mlstm_in(p, x)
     st = mlstm_state_init(B, p)
-    C, n, m = st["C"], st["n"], st["m"]
-    hs = []
-    for t in range(S):
-        h, C, n, m = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
-                                 i_raw[:, t], f_raw[:, t])
-        hs.append(h)
-    h = torch.stack(hs, 1).reshape(B, S, -1)
-    out = _mlstm_out(p, h, xc, o, gate, x.dtype)
+    h, C, n, m = _mlstm_scan(st["C"], st["n"], st["m"], *seq)
+    out = _mlstm_out(p, h.reshape(B, S, -1), xc, o, gate, x.dtype)
     if not return_state:
         return out
+    K = p["conv"].shape[0]
     return out, {"conv": apad[:, S:S + K - 1].to(p["conv"].dtype),
                  "C": C, "n": n, "m": m}
+
+
+def apply_mlstm_train(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Training: ``x [B,S,D] -> [B,S,D]``, differentiable; the recurrence
+    in checkpointed chunks of ``_pick_chunk(S)`` steps (on DTensors, on
+    each rank's rows and heads: ``distributed.activations.on_shards``)."""
+    B, S, _ = x.shape
+    _, xc, gate, seq, o = _mlstm_in(p, x)
+    shape = seq[0].shape
+    seq, wrap = on_shards(seq, (0, 2))
+    b, _, H, dh = seq[0].shape
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=x.device)
+    carry = (z(b, H, dh, dh), z(b, H, dh), z(b, H))
+    Ck = _pick_chunk(S)
+    hs = []
+    for i in range(0, S, Ck):
+        h, *carry = checkpoint(_mlstm_scan, *carry,
+                               *(t[:, i:i + Ck] for t in seq),
+                               use_reentrant=False)
+        hs.append(h)
+    h = wrap(torch.cat(hs, 1), shape).reshape(B, S, -1)
+    return _mlstm_out(p, h, xc, o, gate, x.dtype)
 
 
 def mlstm_state_init(batch: int, p: dict) -> dict:
@@ -193,11 +264,14 @@ def slstm_init_(p: dict, gen: torch.Generator) -> dict:
     return p
 
 
-def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple) -> tuple:
-    """One recurrence step; ``xw_t [B, 4D]`` the input's contribution.
-    The recurrence ``[4, B, H, dh]`` is laid out ``(4, B, D) -> (B, 4D)``
-    before the gates split, as the reference's."""
+def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple,
+                one: torch.Tensor | None = None) -> tuple:
+    """One recurrence step; ``xw_t [B, 4D]`` the input's contribution,
+    ``one`` :func:`_one` (made here when not given). The recurrence ``[4, B, H, dh]`` is laid out
+    ``(4, B, D) -> (B, 4D)`` before the gates split, as the
+    reference's."""
     h, c, n, m = carry                                       # [B,D] each
+    one = _one(c) if one is None else one
     B, D = h.shape
     _, H, dh, _ = p["r"].shape
     rec = torch.einsum("bhk,ghkv->gbhv", h.reshape(B, H, dh).to(p["r"].dtype),
@@ -209,25 +283,46 @@ def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple) -> tuple:
     i_g, f_g = torch.exp(i_r - m_new), torch.exp(f_r + m - m_new)
     c_new = f_g * c + i_g * torch.tanh(z_r)
     n_new = f_g * n + i_g
-    h_new = torch.sigmoid(o_r) * c_new / torch.clamp(n_new, min=1.0)
+    h_new = torch.sigmoid(o_r) * c_new / torch.maximum(n_new, one)
     return h_new, c_new, n_new, m_new
+
+
+def _slstm_scan(p: dict, xw: torch.Tensor, *carry):
+    """The step over every ``xw [B,T,4D]``: ``(h [B,T,D], *carry)``
+    (``xw`` unbound once, as in :func:`_mlstm_scan`)."""
+    one, hs = _one(carry[0]), []
+    for xw_t in xw.unbind(1):
+        carry = _slstm_step(p, xw_t, carry, one)
+        hs.append(carry[0])
+    return (torch.stack(hs, 1), *carry)
 
 
 def apply_slstm(p: dict, x: torch.Tensor, return_state: bool = False):
     """Prefill: ``x [B,S,D] -> [B,S,D]``, sequential over S; with
     ``return_state`` also the carry ``{"h", "c", "n", "m"}`` (each
     ``[B, D]`` float32)."""
-    B, S, D = x.shape
     xw = x @ p["w"]                                          # [B,S,4D]
-    carry = tuple(slstm_state_init(B, p).values())
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(p, xw[:, t], carry)
-        hs.append(carry[0])
-    out = torch.stack(hs, 1).to(x.dtype) @ p["w_dn"]
+    h, *carry = _slstm_scan(p, xw, *slstm_state_init(x.shape[0],
+                                                     p).values())
+    out = h.to(x.dtype) @ p["w_dn"]
     if not return_state:
         return out
     return out, dict(zip(("h", "c", "n", "m"), carry))
+
+
+def apply_slstm_train(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Training: ``x [B,S,D] -> [B,S,D]``, differentiable; the recurrence
+    in checkpointed chunks of ``_pick_chunk(S)`` steps."""
+    S = x.shape[1]
+    xw = x @ p["w"]
+    carry = tuple(slstm_state_init(x.shape[0], p).values())
+    Ck = _pick_chunk(S)
+    hs = []
+    for i in range(0, S, Ck):
+        h, *carry = checkpoint(_slstm_scan, p, xw[:, i:i + Ck], *carry,
+                               use_reentrant=False)
+        hs.append(h)
+    return torch.cat(hs, 1).to(x.dtype) @ p["w_dn"]
 
 
 def slstm_state_init(batch: int, p: dict) -> dict:

@@ -9,7 +9,11 @@ same leaves: :func:`param_tree` maps each leaf of the reference's tree,
 named by its path (``"embed"``, ``"final_norm.scale"``, ``"lm_head"``,
 ``"period.<pos>.mix.wq"``, ...), to the list of the port's tensors that
 leaf stacks, in period order (one tensor for a leaf that is not
-stacked). Gradients and the AdamW moments are trees of the same shape.
+stacked). The encoder-decoder's reference stacks its layers without
+periods: ``enc.<l>.<rest>`` and ``dec.<l>.<rest>`` are layer ``l`` of the
+leaves ``enc.<rest>`` and ``dec.<rest>``. Every mixer's leaves (Mamba,
+mLSTM, sLSTM, float32 ones included) are leaves like any other. Gradients
+and the AdamW moments are trees of the same shape.
 
 The reference decides weight decay and Adafactor's factoring by the rank
 of *its* leaf, one more than a stacked part's: a per-layer norm scale or
@@ -21,28 +25,41 @@ from __future__ import annotations
 
 import torch
 
+#: the reference's leaves stacked over layers or periods start so
+STACKS = ("period", "enc", "dec")
+
+
 def stacked(key: str) -> bool:
-    """Whether the reference stacks leaf ``key`` over scan periods."""
-    return key.startswith("period.")
+    """Whether the reference stacks leaf ``key`` over scan periods (or,
+    in the encoder-decoder, over layers)."""
+    return key.split(".", 1)[0] in STACKS
+
+
+def tree_key(name: str, P: int) -> tuple[str, int]:
+    """A parameter's name -> ``(its reference leaf's path, its index in
+    that leaf's stack)``; ``P`` is the config's scan period."""
+    head, *rest = name.split(".")
+    if head == "blocks":
+        layer = int(rest[0])
+        return ".".join(["period", str(layer % P), *rest[1:]]), layer // P
+    if head in ("enc", "dec"):
+        return ".".join([head, *rest[1:]]), int(rest[0])
+    return ("lm_head" if name == "lm_head_w" else name), 0
 
 
 def param_tree(model) -> dict[str, list[torch.Tensor]]:
     """The reference's leaf path -> the port's tensors it stacks, for a
-    decoder-only :class:`~repro_torch.models.transformer.Transformer`.
+    :class:`~repro_torch.models.transformer.Transformer` or an
+    :class:`~repro_torch.models.encdec.EncDec`.
 
     ``blocks.<l>.<rest>`` is period ``l // P`` of ``period.<l % P>.<rest>``
-    (``P = cfg.scan_period()``); the port's ``lm_head_w`` is the
-    reference's ``lm_head``."""
+    (``P = cfg.scan_period()``); ``enc.<l>.<rest>`` / ``dec.<l>.<rest>``
+    are layer ``l`` of ``enc.<rest>`` / ``dec.<rest>``; the port's
+    ``lm_head_w`` is the reference's ``lm_head``."""
     P = model.cfg.scan_period()
     tree: dict[str, list] = {}
     for name, t in model.named_parameters():
-        head, *rest = name.split(".")
-        if head == "blocks":
-            layer = int(rest[0])
-            key, idx = ".".join(["period", str(layer % P), *rest[1:]]), \
-                layer // P
-        else:
-            key, idx = ("lm_head" if name == "lm_head_w" else name), 0
+        key, idx = tree_key(name, P)
         parts = tree.setdefault(key, [])
         parts.extend([None] * (idx + 1 - len(parts)))
         parts[idx] = t

@@ -3,7 +3,8 @@ attention, page allocator.
 
 Counterpart of ``src/repro/paging/kv_cache.py``. :class:`PageAllocator` is
 a copy of the reference's host-side free list; :func:`linear_page_table`
-the static layout of the lock-step batch path.
+the static layout of the lock-step batch path; :func:`kv_pool_specs` the
+pool's logical axes for ``repro_torch.distributed.sharding``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ def init_paged_kv(n_layers: int, n_pages: int, page_size: int,
     sh = (n_layers, n_pages, page_size, n_kv_heads, head_dim)
     return {"k": torch.zeros(sh, dtype=dtype, device=dev),
             "v": torch.zeros(sh, dtype=dtype, device=dev)}
+
+
+def kv_pool_specs(n_layers: int) -> dict:
+    """Logical axes of :func:`init_paged_kv`'s pool: the page dim sharded
+    (the disaggregated tier), as the reference's."""
+    ax = ("layers", "pages", None, "kv_heads_s", None)
+    return {"k": ax, "v": ax}
 
 
 def linear_page_table(batch: int, n_pages_per_seq: int, stride: int = 1,

@@ -1377,3 +1377,118 @@ def test_cuda_trainer_kill_and_restart_is_bitwise(cuda, arch, tmp_path,
                              "4"])["history"]
     assert not fail and got == clean[:6] + clean[4:]
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm_350m", "seamless_m4t_medium"])
+def test_cuda_recurrent_and_encdec_train_grads_match_the_cpu(cuda, arch,
+                                                            monkeypatch):
+    """The xLSTM and encoder-decoder train routes on the card against the
+    CPU, f32 with TF32 off, smoke configs at 2 x 256 tokens (two chunks
+    of the recurrences; seeded frames for the encoder-decoder): the loss
+    within 1e-5 relative, every gradient within 1e-4 of its largest
+    magnitude."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.get_smoke_config(arch)
+    cpu = build_model(cfg, device="cpu", seed=0, trainable=True)
+    card = build_model(cfg, device=cuda, seed=None, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    batch = dict(make_pipeline(cfg.vocab_size, 2, 256, seed=1).peek(0))
+    if cfg.family == "encdec":
+        batch["frames"] = np.random.default_rng(1).standard_normal(
+            (2, 256, cfg.d_model)).astype(np.float32)
+    losses = []
+    for model in (cpu, card):
+        loss = model.train_forward({k: torch.from_numpy(v).to(model.device)
+                                    for k, v in batch.items()})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        err = float((q.grad.cpu() - p.grad).abs().max())
+        assert err <= 1e-4 * float(p.grad.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gradient_codec_equals_the_cpu(cuda, dtype):
+    """compress_int8 / decompress_int8 on the card: q, the scale and the
+    new error bitwise the CPU's, at magnitudes from 1e-3 to 1e3."""
+    from repro_torch.runtime import compression as codec
+    g = torch.Generator().manual_seed(7)
+    for scale in (1e-3, 1.0, 1e3):
+        grad = (torch.randn((257, 129), generator=g) * scale).to(dtype)
+        err = torch.randn((257, 129), generator=g) * scale * 1e-3
+        want = codec.compress_int8(grad, err)
+        got = codec.compress_int8(grad.to(cuda), err.to(cuda))
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+        assert torch.equal(codec.decompress_int8(*got[:2]).cpu(),
+                           codec.decompress_int8(*want[:2]))
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_sharded_step_matches_the_unsharded(cuda,
+                                                               tmp_path):
+    """A one-rank NCCL group from a file store, ``make_host_mesh()`` on
+    the card ((1, 1)): one ``make_sharded_train_step`` of qwen2.5-3b's
+    smoke config against ``make_train_step`` on the same state and batch
+    (the loss within 1e-5 relative, every updated parameter within 1e-4
+    of its largest magnitude); ``compressed_psum`` over the group: the
+    new errors bitwise the CPU's ``compress_int8``, the mean ``q *
+    scale``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_sharded_train_step,
+                                          make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, param_tree
+    from repro_torch.runtime import compression as codec
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh()
+        assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        cfg = configs.get_smoke_config("qwen2_5_3b")
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+                 make_pipeline(cfg.vocab_size, 4, 16, seed=1).peek(0).items()}
+        models, losses = [], []
+        for sharded in (False, True):
+            model = build_model(cfg, device=cuda, seed=0, trainable=True)
+            init, update = make_optimizer("adamw", 1e-4)
+            state = init(param_tree(model))
+            fn = (make_sharded_train_step(model, update, mesh,
+                                          rules_for("train", False))
+                  if sharded else make_train_step(model, update))
+            losses.append(float(fn(state, batch, 0)[0]))
+            models.append(model)
+        assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+        for p, q in zip(models[0].parameters(), models[1].parameters()):
+            q = q.detach().full_tensor()
+            err = float((q - p.detach()).abs().max())
+            assert err <= 1e-4 * float(p.detach().abs().max())
+        grads = {"a": torch.randn((64, 33), device=cuda),
+                 "b": [torch.randn((300,), device=cuda)]}
+        errs = codec.init_error_feedback(grads)
+        mean, new_err = codec.compressed_psum(grads, errs)
+        for g, m, e in ((grads["a"], mean["a"], new_err["a"]),
+                        (grads["b"][0], mean["b"][0], new_err["b"][0])):
+            q, sc, want_e = codec.compress_int8(g.cpu(),
+                                                torch.zeros(g.shape))
+            assert torch.equal(e.cpu(), want_e)
+            assert torch.equal(m.cpu(), codec.decompress_int8(q, sc))
+    finally:
+        dist.destroy_process_group()

@@ -8,8 +8,8 @@ tree converted by ``train_state_from_jax`` and both fed the same pipeline
 batch: the loss within 1e-5, each gradient leaf within 1e-4 of its
 largest magnitude, compared leaf by leaf in the reference's tree
 (``grads_to_jax``). jamba runs at capacity factor 1.0, so its MoE layers
-drop tokens. xLSTM and the encoder-decoder refuse to train, naming the
-queue item. Each reference gradient compiles once per module. (The
+drop tokens. xLSTM and the encoder-decoder are held the same way at 2 x
+16 (the encoder-decoder with seeded frames). Each reference gradient compiles once per module. (The
 trainer CLI's tests are in ``test_torch_train_cli.py``.)
 """
 
@@ -28,7 +28,6 @@ from repro.models.model import build_model as j_build  # noqa: E402
 from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.convert import (grads_to_jax,  # noqa: E402
                                  train_state_from_jax)
-from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
 CPU = "cpu"
@@ -96,9 +95,29 @@ def test_train_forward_loss_and_grads_match_jax(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["xlstm_350m", "seamless_m4t_medium"])
 def test_unported_train_routes_raise_naming_the_queue_item(arch):
-    model = t_build(tcfg.get_smoke_config(arch), device=CPU,
-                    trainable=True)
-    batch = {k: torch.from_numpy(v) for k, v in
-             j_pipeline(model.cfg.vocab_size, B, S).peek(0).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        model.train_forward(batch)
+    """The two routes that once raised here (xLSTM, the encoder-decoder)
+    now train: loss and gradients against the reference's at 2 x 16 (the
+    encoder-decoder fed seeded frames; ``test_torch_train_recurrent.py``
+    runs two chunks and an update)."""
+    jc, tc = jcfg.get_smoke_config(arch), tcfg.get_smoke_config(arch)
+    jm = j_build(jc)
+    params, _ = jm.init_params(jax.random.PRNGKey(0))
+    batch = dict(j_pipeline(jc.vocab_size, B, S, seed=1).peek(0))
+    if jc.family == "encdec":
+        batch["frames"] = np.random.default_rng(1).standard_normal(
+            (B, S, jc.d_model)).astype(np.float32)
+    want_loss, want = jax.jit(jax.value_and_grad(jm.train_forward))(
+        params, batch)
+    params_np = jax.tree.map(np.asarray, params)
+    model, _ = train_state_from_jax(params_np, _zero_opt(params_np), tc,
+                                    "adamw", CPU)
+    loss = model.train_forward({k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    loss.backward()
+    assert abs(float(loss.detach()) - float(want_loss)) <= LOSS_TOL
+    got = grads_to_jax(model, tc)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        w = np.asarray(w)
+        assert float(np.abs(g - w).max()) <= GRAD_TOL * max(
+            float(np.abs(w).max()), 1e-30)
