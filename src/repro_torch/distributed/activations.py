@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import threading
 
+import torch
+
 _state = threading.local()
 
 
@@ -95,6 +97,31 @@ def replicate(x):
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+class _GradAs(torch.autograd.Function):
+    """The identity forward; backward redistributes the gradient to the
+    placements given."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def grad_as_forward(x):
+    """``x`` itself; on a DTensor, its gradient is redistributed to ``x``'s
+    own placements before it reaches the op that made ``x`` (DTensor may
+    hand back a gradient in the layout of the op that consumed ``x``)."""
+    if not is_dtensor(x):
+        return x
+    return _GradAs.apply(x, tuple(x.placements))
+
+
 def on_shards(tensors, dims: tuple, divides=None):
     """Hand DTensors to code that runs on each rank's own shards, as
     GSPMD runs an op that is independent along some dims (attention over
@@ -109,7 +136,6 @@ def on_shards(tensors, dims: tuple, divides=None):
     pass through, and ``wrap`` is the identity."""
     if not tensors or not is_dtensor(tensors[0]):
         return list(tensors), lambda t, shape: t
-    import torch
     from torch.distributed.tensor import DTensor, Replicate
 
     mesh = tensors[0].device_mesh

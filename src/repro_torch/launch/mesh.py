@@ -6,13 +6,18 @@ Counterpart of ``repro.launch.mesh``, with its axis names. Single pod:
 ``"pod"`` axis, (2, 16, 16), 512 chips. ``"model"`` is the bandwidth-rich
 TP / EP axis, ``"data"`` carries FSDP and the batch, ``"pod"`` pure DP.
 ``"fabric"`` (:func:`make_fabric_mesh`) is the disaggregated-memory axis
-of the sharded cold pool, one rank a home shard.
+of the sharded cold pool, one rank a home shard
+(:func:`repro_torch.paging.sharded_pool.mesh_plane`); the serve CLI
+builds it when a launcher starts it as that many ranks.
 
 Each builds a ``DeviceMesh`` with ``init_device_mesh`` over the ranks of
 the default process group, which the caller starts
 (``torch.distributed.init_process_group`` with its address, world size
 and rank); the mesh's size must be the world's. ``device_type`` is
-``"cuda"`` unless the caller asks for ``"cpu"`` (gloo).
+``"cuda"`` unless the caller asks for ``"cpu"`` (gloo); the fabric mesh's
+follows the default group's backend (``"cuda"`` for NCCL, else
+``"cpu"``), since its ring moves tensors itself and the mesh only names
+the group.
 """
 
 from __future__ import annotations
@@ -38,14 +43,17 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 def make_fabric_mesh(n_shards: int, device_type: str | None = None):
     """1-D ``("fabric",)`` mesh over ``n_shards`` ranks, the sharded cold
-    pool's home shards; raises when the world is smaller."""
+    pool's home shards; raises unless the world has ``n_shards`` ranks."""
     n = _world()
-    if n < n_shards:
+    if n != n_shards:
         raise ValueError(
             f"need {n_shards} ranks for a {n_shards}-shard fabric mesh, "
             f"have {n}: start one rank a shard (torchrun "
             f"--nproc-per-node {n_shards}, or init_process_group with "
             f"world_size={n_shards})")
+    if device_type is None and n > 1:
+        import torch.distributed as dist
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return _init(device_type, (n_shards,), ("fabric",))
 
 

@@ -1,4 +1,4 @@
-"""Serving CLI of the port: ``repro.launch.serve`` on one shard.
+"""Serving CLI of the port: ``repro.launch.serve``.
 
 Two serving disciplines, as in the reference:
 
@@ -24,9 +24,16 @@ cpu`` is given. Exits non-zero on a tiered/flat pin break, with
 ``--trace`` on trace totals that diverge from the pool counters, and on
 the continuous path on unfinished requests, a page leak or a
 page-conservation break. ``--shards N`` shards the cold pool over N home
-shards on the flat data plane (``--placement``, ``--far-delay``, a per-NIC
-``--link-budget``); ``--chaos SPEC.json`` adds the batch path's chaos
-sidecar. On the continuous path ``--migration`` turns on the §12 page
+shards (``--placement``, ``--far-delay``, a per-NIC ``--link-budget``);
+``--chaos SPEC.json`` adds the batch path's chaos sidecar. Run alone, the
+shards share one process and the flat data plane. Under a launcher that
+sets ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` with N ranks (``torchrun
+--nproc-per-node N ... --shards N``) the CLI starts the process group
+(NCCL with a card a rank, else gloo: ranks that share a card stage each
+ring hop through host memory) and the sweep runs on the mesh plane: each
+rank serves the same requests, holds one home slice of the cold pool and
+checks its own pin; rank 0 alone prints the report and writes the
+trace. On the continuous path ``--migration`` turns on the §12 page
 lifecycle (hot-ward migration, ``--mig-cooldown``) and ``--compressed-tier
 N`` its compressed cold tier; the report then carries ``residency``.
 
@@ -37,12 +44,16 @@ N`` its compressed cold tier; the report then carries ``residency``.
   PYTHONPATH=src python -m repro_torch.launch.serve --synthetic \
       --device cpu --arrival bursty --paged --async-datapath --shards 4 \
       --migration --compressed-tier 16
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --synthetic --device cpu --arrival bursty --paged --async-datapath \
+      --shards 4
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -50,6 +61,7 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_fabric_mesh
 from repro_torch.models.model import build_model
 from repro_torch.obs.export import (write_chrome_trace, write_jsonl,
                                     write_request_jsonl)
@@ -87,8 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=1,
                     help="with --paged: shard the cold paged-KV pool over "
                          "this many home shards, each behind its own NIC "
-                         "(DESIGN.md §7); on one GPU the flat data plane "
-                         "moves the bytes. Default 1 = flat cold pool")
+                         "(DESIGN.md §7); in one process the flat data "
+                         "plane moves the bytes, under torchrun with this "
+                         "many ranks a ring between the ranks' home "
+                         "slices. Default 1 = flat cold pool")
     ap.add_argument("--placement", choices=("block", "interleave"),
                     default="interleave",
                     help="with --shards: page -> home-shard policy "
@@ -177,9 +191,37 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _launched_ranks(args) -> bool:
+    """Start the process group when a launcher (``torchrun``) set
+    ``WORLD_SIZE`` > 1: NCCL when every rank of the node has a card of
+    its own, else gloo; ``LOCAL_RANK`` picks this rank's card. Returns
+    whether it started one."""
+    import torch.distributed as dist
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return False
+    backend = "gloo"
+    if resolve_device(args.device).type == "cuda":
+        n = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % n)
+        if n >= int(os.environ.get("LOCAL_WORLD_SIZE", world)):
+            backend = "nccl"
+    dist.init_process_group(backend)
+    return True
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.shards != world:
+        ap.error(f"{world} ranks serve a cold pool of as many home shards: "
+                 f"pass --shards {world}")
     if args.trace and not (args.paged or args.arrival != "batch"):
         ap.error("--trace requires --paged (only the tiered data path "
                  "emits the page-lifecycle info arrays)")
@@ -190,9 +232,17 @@ def main(argv=None) -> dict:
         ap.error("--migration/--compressed-tier need the continuous engine "
                  "(--arrival constant|bursty|churn): the page lifecycle is "
                  "driven between engine steps")
-    if args.arrival == "batch":
-        return _main_batch(args)
-    return _main_continuous(args)
+    started = _launched_ranks(args)
+    try:
+        # one rank a home shard: the sweep runs on the mesh plane
+        mesh = make_fabric_mesh(world) if world > 1 else None
+        if args.arrival == "batch":
+            return _main_batch(args, mesh=mesh)
+        return _main_continuous(args, mesh=mesh)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 def model_config(args):
@@ -219,14 +269,17 @@ def _frames(seed: int, B: int, prompt_len: int, d: int) -> torch.Tensor:
     return torch.randn((B, prompt_len, d), generator=g)
 
 
-def _main_batch(args, model=None, prompts=None, frames=None) -> dict:
+def _main_batch(args, model=None, prompts=None, frames=None,
+                mesh=None) -> dict:
     """The lock-step path: batched prefill + greedy decode (+ the tiered
     replay). ``model`` (a built model, for example of a depth-cut config)
     and ``prompts`` (``[batch, prompt_len]``) may be handed in, and for an
     encoder-decoder its ``frames`` (``[batch, prompt_len, d_model]``); by
     default the model of ``--arch`` is built with parameters from
-    ``--seed`` and the prompts and frames come from ``--seed + 1``. The
-    result carries the reference's keys plus the emitted ``tokens``."""
+    ``--seed`` and the prompts and frames come from ``--seed + 1``.
+    ``mesh`` (the fabric mesh, with ``--shards``) takes the tiered replay's
+    sweep onto the mesh plane. The result carries the reference's keys
+    plus the emitted ``tokens``."""
     dev = resolve_device(args.device)
     if model is None:
         model = build_model(model_config(args), device=dev, seed=args.seed)
@@ -282,24 +335,27 @@ def _main_batch(args, model=None, prompts=None, frames=None) -> dict:
         "tokens": tokens.tolist(),
         "step_time_monitor": rnd(mon.summary()),
     }
+    trace = args.trace if _rank() == 0 else None
     if args.paged:
         result.update(serve_batch_tiered(cfg, state, args, B, prompt_len,
-                                         max_len, reg=reg,
-                                         trace_path=args.trace))
+                                         max_len, reg=reg, trace_path=trace,
+                                         mesh=mesh))
         if not result["tiered_equiv_ok"]:
             print(result)
             raise SystemExit("tiered/flat decode attention mismatch (first "
                              "bad decode step "
                              f"{result['tiered_first_bad_step']})")
-        if args.trace and not result["trace_totals_ok"]:
+        if trace and not result["trace_totals_ok"]:
             print(result)
             raise SystemExit("trace event totals diverge from pool counters")
-    print(result)
+    if _rank() == 0:
+        print(result)
     return result
 
 
-def _main_continuous(args) -> dict:
-    """The continuous-batching engine over the request lifecycle."""
+def _main_continuous(args, mesh=None) -> dict:
+    """The continuous-batching engine over the request lifecycle, its sweep
+    on the mesh plane when ``mesh`` (the fabric mesh) is given."""
     migration = None
     if args.migration or args.compressed_tier is not None:
         migration = MigrationCfg(
@@ -323,9 +379,9 @@ def _main_continuous(args) -> dict:
                 if args.synthetic else
                 ModelExecutor(model_config(args), seed=args.seed,
                               device=args.device))
-    engine = ServingEngine(scfg, executor, device=args.device)
+    engine = ServingEngine(scfg, executor, device=args.device, mesh=mesh)
     result = engine.run()
-    if args.trace:
+    if args.trace and _rank() == 0:
         counters = None
         if engine.link_hist:
             counters = {"link_demand_fetches":
@@ -359,7 +415,8 @@ def _main_continuous(args) -> dict:
     if args.trace and not result["trace_totals_ok"]:
         print(result)
         raise SystemExit("trace event totals diverge from pool counters")
-    print(result)
+    if _rank() == 0:
+        print(result)
     return result
 
 

@@ -64,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.distributed.activations import (activation_constraint,
                                                  attn_constraint,
+                                                 grad_as_forward,
                                                  matmul_input_constraint,
                                                  replicate)
 
@@ -398,10 +399,12 @@ class Transformer(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The embedding rows of ``tokens``; sharded token ids are
-        replicated first (PyTorch 2.11's DTensor has no strategy for the
-        lookup's backward, an ``index_put``, over batch-sharded ids)."""
-        return self.embed[replicate(tokens.long())]
+        """The embedding rows of ``tokens``. On DTensors the lookup's
+        backward, an ``index_put``, gets its operands in layouts PyTorch
+        2.11's DTensor has a strategy for: the token ids replicated first,
+        and the rows' gradient laid out as the rows were (the trunk's batch
+        sharded over two mesh dims, as xlstm trains, has none)."""
+        return grad_as_forward(self.embed[replicate(tokens.long())])
 
     def lm_head(self) -> torch.Tensor:
         """``[d, V]``: the tied embedding's transpose or the head weight."""

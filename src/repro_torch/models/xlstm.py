@@ -165,7 +165,11 @@ def _mlstm_in(p: dict, x: torch.Tensor):
     S = x.shape[1]
     a, gate = (x @ p["w_up"]).chunk(2, dim=-1)              # [B,S,di]
     K = p["conv"].shape[0]
-    apad = F.pad(a, (0, 0, K - 1, 0))                        # causal pad
+    # the causal pad on each rank's batch rows (PyTorch 2.11's DTensor
+    # has no working pad of a batch sharded over two mesh dims)
+    (a_loc,), wrap = on_shards((a,), (0,))
+    apad = wrap(F.pad(a_loc, (0, 0, K - 1, 0)),
+                (a.shape[0], S + K - 1, a.shape[2]))
     xc = F.silu(sum(apad[:, j:j + S] * p["conv"][j] for j in range(K)))
     q, k, v = _mlstm_qkv(p, xc, a)                           # [B,S,H,dh]
     i_raw, f_raw = _mlstm_gates(p, xc)                       # [B,S,H]

@@ -1,8 +1,8 @@
 """Sharded cold pool: per-shard NICs, placement, near/far asymmetry.
 
-Counterpart of ``repro.paging.sharded_pool`` on its flat data plane. The
-cold pool is split over ``n_shards`` home shards (one NIC each); a page's
-home comes from its placement (``"block"`` or ``"interleave"``,
+Counterpart of ``repro.paging.sharded_pool``. The cold pool is split over
+``n_shards`` home shards (one NIC each); a page's home comes from its
+placement (``"block"`` or ``"interleave"``,
 :func:`repro_torch.core.pool.page_home`). Scheduling follows the topology:
 
 * **per-shard link budgets**: each NIC moves ``link_budget`` pages a step,
@@ -13,21 +13,34 @@ home comes from its placement (``"block"`` or ``"interleave"``,
   arrives after ``near_delay`` steps, a cross-shard one after
   ``far_delay``.
 
-On one GPU the bytes move by plain indexing of the local cold pool (the
-reference's flat plane); placement, budgets and delays shape what lands
-when. The reference's second plane, ``shard_map`` with ``ppermute`` ring
-rotations over a device mesh, has no counterpart yet: a ``mesh`` raises
-(ROADMAP queue 1 item 5). ``chaos``
-(:class:`repro_torch.fabric.chaos.ChaosSpec`) injects the four fault axes
-into the consume scan, and ``migration``
+Two data planes move the same bytes:
+
+* **flat** (``mesh=None``): the cold pool is one local tensor and pages
+  are gathered by plain indexing; placement, budgets and delays shape
+  what lands when;
+* **mesh** (a ``torch.distributed`` DeviceMesh with a ``"fabric"`` dim of
+  ``n_shards`` ranks, :func:`repro_torch.launch.mesh.make_fabric_mesh`):
+  each rank holds only its home slice (:func:`home_slice`, the pages
+  homed on it in :func:`place_cold`'s home-major order) and runs the same
+  metadata scan, replicated; cross-shard pages reach it by
+  :func:`fabric_ring_gather`, a ring of send / receive hops in which every
+  rank keeps the entries homed on the visiting slice. The reference runs
+  this plane under ``shard_map`` with ``lax.ppermute``.
+
+``chaos`` (:class:`repro_torch.fabric.chaos.ChaosSpec`) injects the four
+fault axes into the consume scan, and ``migration``
 (:class:`repro_torch.paging.lifecycle.MigrationCfg`) runs the §12 page
 lifecycle in it: hot-ward migration as the third grant class and, with
-``compressed``, the compressed cold tier.
+``compressed``, the compressed cold tier. Both steer scheduling only: the
+data plane keeps gathering from the static placement, which is what keeps
+the two planes bitwise equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 
 import numpy as np
 import torch
@@ -35,7 +48,8 @@ import torch
 from repro_torch.core.leap import leap_step_batched
 from repro_torch.core.pool import (NO_PAGE, PLACEMENTS, _tree_map,
                                    link_grants_sharded, page_home,
-                                   pool_invalidate, pool_issue, pool_wait,
+                                   page_local, pool_invalidate, pool_issue,
+                                   pool_wait,
                                    tier_demote, tier_heat_decay, tier_init,
                                    tier_migrate, tier_promote, tier_touch)
 from repro_torch.device import cached_arange
@@ -97,18 +111,29 @@ def place_cold(cold, n_pages: int, fabric: ShardedPoolCfg):
         place_perm(n_pages, fabric)).to(c.device)], cold)
 
 
+def home_slice(cold, n_pages: int, fabric: ShardedPoolCfg, rank: int):
+    """Shard ``rank``'s home slice of every leaf: ``place_cold(cold)[rank *
+    pps:(rank + 1) * pps]``, the pages homed on it at their ``page_local``
+    indices (read from ``cold`` directly, without placing the rest)."""
+    pps = n_pages // fabric.n_shards
+    idx = place_perm(n_pages, fabric)[rank * pps:(rank + 1) * pps]
+    return _tree_map(lambda c: c[torch.from_numpy(idx).to(c.device)], cold)
+
+
 def check_fabric_topology(n_pages: int, fabric: ShardedPoolCfg,
                           mesh=None) -> None:
-    """Entry-point validation: the pool must split evenly over the shards.
-    A mesh (the reference's ``shard_map`` plane) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the shard_map data plane's torch.distributed twin is "
-            "ROADMAP queue 1 item 5; pass mesh=None (the flat plane, the "
-            "same bytes and schedule)")
+    """Entry-point validation, the reference's: the pool must split evenly
+    over the shards, and a mesh (if given) must carry a ``"fabric"`` dim
+    of ``n_shards`` ranks (read from ``mesh_dim_names`` and ``shape``)."""
     if n_pages % fabric.n_shards:
         raise ValueError(f"n_pages={n_pages} not divisible by "
                          f"n_shards={fabric.n_shards}")
+    if mesh is None or fabric.n_shards == 1:
+        return
+    size = dict(zip(mesh.mesh_dim_names or (), mesh.shape)).get("fabric")
+    if size != fabric.n_shards:
+        raise ValueError(f"mesh fabric axis {size} != n_shards "
+                         f"{fabric.n_shards}")
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +144,137 @@ def _gather_flat(cold, pages: torch.Tensor):
     every leaf of the cold pool."""
     return _tree_map(
         lambda c: c[pages.clamp(0, c.shape[0] - 1).long()], cold)
+
+
+# --------------------------------------------------------------------------
+# the mesh data plane
+# --------------------------------------------------------------------------
+#: ring hops since the last :func:`reset_ring_stats`: count, bytes sent,
+#: host seconds, and the route of the last hop
+_RING = {"hops": 0, "bytes": 0, "seconds": 0.0, "route": None}
+
+
+def reset_ring_stats() -> None:
+    _RING.update(hops=0, bytes=0, seconds=0.0, route=None)
+
+
+def ring_stats() -> dict:
+    """This process's ring hops since the last :func:`reset_ring_stats`:
+    ``hops``, ``bytes`` (sent), ``seconds`` (host time of the hops; on the
+    staged route each starts after a device sync and ends with its bytes
+    back on the device) and the last hop's ``route``."""
+    return dict(_RING)
+
+
+def ring_route(backend: str, device: torch.device) -> str:
+    """How a hop moves a tensor on ``device`` over a group of ``backend``:
+    ``"nccl"`` (CUDA tensors, directly), ``"gloo"`` (CPU tensors,
+    directly) or ``"gloo_staged"`` (CUDA tensors through host memory:
+    gloo's send / receive read the tensor's pointer on the host). Any
+    other pairing raises."""
+    if backend == "nccl" and device.type == "cuda":
+        return "nccl"
+    if backend == "gloo":
+        return "gloo_staged" if device.type == "cuda" else "gloo"
+    raise ValueError(f"fabric ring: no route for {device.type} tensors "
+                     f"over a {backend!r} group")
+
+
+def _ring_hop(buf: torch.Tensor, send_to: int, recv_from: int, group,
+              route: str) -> torch.Tensor:
+    """One rotation: send ``buf`` to ``send_to`` and receive its
+    neighbour's from ``recv_from`` (global ranks), both posted before
+    either is waited on."""
+    import torch.distributed as dist
+    staged = route == "gloo_staged"
+    if staged:
+        torch.cuda.synchronize(buf.device)
+    t0 = time.perf_counter()
+    out = buf.contiguous()
+    if staged:
+        out = out.cpu()
+    got = torch.empty_like(out)
+    for w in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, out, send_to, group),
+             dist.P2POp(dist.irecv, got, recv_from, group)]):
+        w.wait()
+    if staged:
+        got = got.to(buf.device)
+    _RING["hops"] += 1
+    _RING["bytes"] += out.numel() * out.element_size()
+    _RING["seconds"] += time.perf_counter() - t0
+    _RING["route"] = route
+    return got
+
+
+def fabric_ring_gather(buf: torch.Tensor, local: torch.Tensor,
+                       homes: torch.Tensor, n_shards: int, pick,
+                       group) -> torch.Tensor:
+    """One-leaf collective gather over the fabric group (the reference's
+    ``shard_map`` ring, on ``torch.distributed``).
+
+    ``buf`` is this rank's home slice ``[pps, ...]``. At round ``r`` the
+    slice of shard ``(me - r) % n_shards`` is visiting; every rank keeps
+    the entries homed there (``homes``), read at their within-shard
+    ``local`` indices by ``pick(buf, local)`` (plain indexing, or a
+    gather kernel so that the bytes still move through it), then sends the
+    visiting slice to ``(me + 1) % n_shards`` and receives the next from
+    ``(me - 1) % n_shards``. After ``n_shards`` rounds every rank holds
+    every requested entry, bit for bit the flat gather on the unplaced
+    pool. The stream consume and the tiered sweep both ride it.
+    """
+    import torch.distributed as dist
+    me = dist.get_rank(group)
+    route = ring_route(dist.get_backend(group), buf.device)
+    send_to = dist.get_global_rank(group, (me + 1) % n_shards)
+    recv_from = dist.get_global_rank(group, (me - 1) % n_shards)
+    out = None
+    for r in range(n_shards):
+        take = homes == (me - r) % n_shards
+        picked = pick(buf, local)
+        mask = take.reshape(tuple(take.shape)
+                            + (1,) * (picked.dim() - take.dim()))
+        out = torch.where(mask, picked,
+                          picked.new_zeros(()) if out is None else out)
+        if r < n_shards - 1:
+            buf = _ring_hop(buf, send_to, recv_from, group, route)
+    return out
+
+
+def _pick_index(buf: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    return buf[local.long()]
+
+
+def _gather_fabric(cold_local, pages: torch.Tensor, n_pages: int,
+                   fabric: ShardedPoolCfg, group, pick=_pick_index):
+    """Collective gather of ``pages`` from the sharded cold pool: the
+    :func:`fabric_ring_gather` ring over each leaf, picking by ``pick``
+    (plain indexing, or the tiered sweep's gather kernels)."""
+    G = fabric.n_shards
+    home = page_home(pages, n_pages, G, fabric.placement)
+    local = page_local(pages, n_pages, G, fabric.placement).clamp(
+        0, n_pages // G - 1)
+    return _tree_map(
+        lambda c: fabric_ring_gather(c, local, home, G, pick, group),
+        cold_local)
+
+
+def fabric_plane(mesh) -> tuple:
+    """``(group, rank)`` of ``mesh``'s ``"fabric"`` dim: the process group
+    the ring runs over and this rank's index in it (its home shard)."""
+    return mesh.get_group("fabric"), mesh.get_local_rank("fabric")
+
+
+def mesh_plane(cold, n_pages: int, fabric: ShardedPoolCfg, mesh,
+               pick=_pick_index) -> tuple:
+    """The mesh plane of this rank: ``(home slice of cold, gather)``, where
+    ``gather(home_slice, pages)`` is the collective ring gather of
+    ``pages`` (every rank of ``mesh``'s ``"fabric"`` group calls it with
+    the same pages), picking each visiting slice's entries by ``pick``."""
+    group, rank = fabric_plane(mesh)
+    return (home_slice(cold, n_pages, fabric, rank),
+            functools.partial(_gather_fabric, n_pages=n_pages, fabric=fabric,
+                              group=group, pick=pick))
 
 
 def scatter_hot(hot: dict, data: dict, dst: torch.Tensor,
@@ -155,10 +311,12 @@ def _per_shard(homes: torch.Tensor, mask: torch.Tensor, G: int
         mask.reshape(-1).to(I32))
 
 
-def _consume_flat(cold, schedules: torch.Tensor, geom,
-                  fabric: ShardedPoolCfg, chaos=None, migration=None):
+def _consume(cold, schedules: torch.Tensor, geom, fabric: ShardedPoolCfg,
+             chaos=None, migration=None, gather=_gather_flat):
     """Lock-step multi-stream consume over the sharded cold pool (the
-    reference's ``_consume_impl`` on the flat plane). Per step:
+    reference's ``_consume_impl``): ``gather(cold, pages)`` is the data
+    plane, :func:`_gather_flat` over the whole pool or the ring over this
+    rank's home slice. Per step:
 
     1. **grant**: shard g's landing capacity is ``link_budget`` less last
        step's demand fetches homed on g; due ring entries homed on g land
@@ -420,7 +578,7 @@ def _consume_flat(cold, schedules: torch.Tensor, geom,
                         1)
         dst = torch.cat([winfo["landed_slots"], slot[:, None]], 1)
         msk = torch.cat([winfo["landed"], winfo["fetched"][:, None]], 1)
-        scatter_hot(hot, _gather_flat(cold, src), dst, msk)
+        scatter_hot(hot, gather(cold, src), dst, msk)
         served = _tree_map(lambda h: h[stream_ids.long(),
                                        slot.clamp(min=0).long()], hot)
         state = {"leap": new_leap, "pool_meta": meta, "hot": hot,
@@ -474,10 +632,22 @@ def sharded_multi_stream_consume(cold, schedules: torch.Tensor, geom,
     ``demoted [T]``, ``mig_on_shard`` / ``pf_on_shard [T, n_shards]`` (per-NIC
     migration and prefetch grants) and the final tables as
     ``state["tier"]``; ``None`` or ``enabled=False`` is the exact two-tier
-    scan. ``mesh`` raises (not ported).
+    scan.
+
+    ``mesh`` (a DeviceMesh with a ``"fabric"`` dim of ``n_shards`` ranks;
+    with ``n_shards > 1``) runs the mesh plane: every rank of the group
+    calls this with the same arguments, keeps only its home slice of
+    ``cold``, runs the metadata scan replicated and gathers through
+    :func:`fabric_ring_gather`; each rank returns the whole result, bitwise
+    the flat plane's. The reference memoizes its ``shard_map`` runner per
+    topology (``cached_shard_map``); eager PyTorch traces nothing, so there
+    is nothing to cache.
     """
     if geom.ring_size <= 0:
         raise ValueError("sharded consume needs the async issue/wait ring "
                          "(geom.ring_size > 0)")
     check_fabric_topology(geom.n_pages, fabric, mesh)
-    return _consume_flat(cold, schedules, geom, fabric, chaos, migration)
+    gather = _gather_flat
+    if mesh is not None and fabric.n_shards > 1:
+        cold, gather = mesh_plane(cold, geom.n_pages, fabric, mesh)
+    return _consume(cold, schedules, geom, fabric, chaos, migration, gather)

@@ -1,17 +1,21 @@
 """Tiered paged-KV: a Leap-managed hot pool per stream feeding decode attention.
 
 Counterpart of ``src/repro/paging/tiered_kv.py``: on the single-link path
-(``fabric=None``) and on a sharded cold pool's flat data plane (``fabric``
-of any shard count: per-NIC budgets, near/far deadlines), with or without
-the §12 lifecycle's tables (``home_map`` / ``comp_map``, which steer the
-scheduling only). A ``mesh`` (the reference's ``shard_map`` plane, ROADMAP
-queue 1 item 5) raises here. The state is a dict of ``{"leap",
+(``fabric=None``) and on a sharded cold pool (``fabric`` of any shard
+count: per-NIC budgets, near/far deadlines), on its flat data plane or,
+with a ``mesh``, on its mesh plane (each rank of the fabric group holds
+its home slice and the gathers run in a ring,
+:func:`repro_torch.paging.sharded_pool.fabric_ring_gather`); with or
+without the §12 lifecycle's tables (``home_map`` / ``comp_map``, which
+steer the scheduling only: the bytes move from the static placement). The
+state is a dict of ``{"leap",
 "pool_meta", "ring", "hot"}`` whose leaves carry a leading stream
 dimension, where the reference vmaps. The chunked sweep is a Python loop
 over chunk steps; each step runs the metadata transactions for all streams
-at once, then moves the bytes through one gather-kernel call per K/V leaf
+at once, then moves the bytes through the gather kernel
 (``gather_pages`` on the sync path, ``gather_pages_async`` on the async
-path), whatever the shard count. Attention then reads the hot tier: unfused
+path): one call per K/V leaf on the flat plane, one a leaf a ring round on
+the mesh plane. Attention then reads the hot tier: unfused
 through the stacked pool and the flat kernel (``"kernel"``) or its plain
 version (``"ref"``), or in place through the hot-slot kernel (``"fused"``)
 or its ``cp.async`` double-buffered twin (``"fused_async"``).
@@ -25,6 +29,7 @@ leaves in place (the metadata leaves it returns are new tensors), and
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -39,7 +44,8 @@ from repro_torch.kernels.paged_attention import (paged_attention,
 from repro_torch.paging.prefetch_serving import stream_stats_at
 from repro_torch.paging.sharded_pool import (ShardedPoolCfg,
                                              check_fabric_topology,
-                                             scatter_hot, stream_homes)
+                                             mesh_plane, scatter_hot,
+                                             stream_homes)
 
 I32 = torch.int32
 
@@ -87,17 +93,31 @@ def tiered_init(geom: TieredKV, n_streams: int, dtype=torch.bfloat16,
 
 
 def _apply_copies(hot: dict, cold: dict, src: torch.Tensor,
-                  dst: torch.Tensor, mask: torch.Tensor, *,
-                  asynchronous: bool, use_kernel: bool) -> dict:
+                  dst: torch.Tensor, mask: torch.Tensor, *, gather) -> dict:
     """Data plane: ``cold[src] -> hot[dst]`` where ``mask``, k and v
-    together, one gather call per leaf for all streams; writes ``hot`` in
-    place."""
+    together, for all streams; writes ``hot`` in place. ``gather(cold,
+    pages)`` moves the bytes (:func:`_data_plane`)."""
     S = src.shape[0]
-    gfn = gather_pages_async if asynchronous else gather_pages
-    flat_src = src.clamp(min=0).reshape(-1).to(I32)
-    data = {k: gfn(c, flat_src, use_kernel=use_kernel).reshape(
-        (S, -1) + tuple(c.shape[1:])) for k, c in cold.items()}
+    data = gather(cold, src.clamp(min=0).reshape(-1).to(I32))
+    data = {k: d.reshape((S, -1) + tuple(d.shape[1:]))
+            for k, d in data.items()}
     return scatter_hot(hot, data, dst, mask)
+
+
+def _data_plane(cold: dict, geom: TieredKV, async_datapath: bool,
+                fabric: ShardedPoolCfg, mesh) -> tuple:
+    """``(cold, gather)`` of the sweep's data plane, the gather kernel
+    (``gather_pages_async`` on the async path, else ``gather_pages``)
+    picking the pages. Flat: the whole pool, one call per leaf. Mesh
+    (``mesh`` with ``n_shards > 1``): this rank's ``[pps, ...]`` home
+    slice and the :func:`repro_torch.paging.sharded_pool.fabric_ring_gather`
+    ring, the kernel picking each visiting slice's pages at their
+    ``page_local`` indices."""
+    gfn = gather_pages_async if async_datapath else gather_pages
+    pick = functools.partial(gfn, use_kernel=geom.use_kernel)
+    if mesh is not None and fabric.n_shards > 1:
+        return mesh_plane(cold, geom.n_pages, fabric, mesh, pick)
+    return cold, lambda c, pages: {k: pick(v, pages) for k, v in c.items()}
 
 
 def _leap_chunk(leap: dict, pages: torch.Tensor, feedback: torch.Tensor,
@@ -188,11 +208,11 @@ def _chunk_async(leap: dict, meta: dict, ring: dict, pages: torch.Tensor,
 
 def _sweep_fn(state: dict, cold: dict, sched: torch.Tensor, geom: TieredKV,
               async_datapath: bool, fabric: ShardedPoolCfg,
-              lifecycle: dict | None = None, mig_delay: int = 0):
+              gather, lifecycle: dict | None = None, mig_delay: int = 0):
     """Lock-step sweep over ``sched [n_chunks, S, chunk]``. ``lifecycle``
     (``{"home", "comp"}`` tables) steers the per-NIC caps, the deadlines
     and the demand accounting; the bytes still move from the static
-    placement."""
+    placement. ``gather`` is the data plane (:func:`_data_plane`)."""
     n_chunks, S, C = sched.shape
     G = fabric.n_shards
     dev = sched.device
@@ -244,9 +264,7 @@ def _sweep_fn(state: dict, cold: dict, sched: torch.Tensor, geom: TieredKV,
                     "fetched": info["fetched"][:, :C]}
             deferred = torch.zeros((S,), dtype=I32, device=dev)
             landed = issued
-        hot = _apply_copies(hot, cold, src, dst, mask,
-                            asynchronous=async_datapath,
-                            use_kernel=geom.use_kernel)
+        hot = _apply_copies(hot, cold, src, dst, mask, gather=gather)
         state = {"leap": leap, "pool_meta": meta, "ring": ring, "hot": hot}
         d_t = cnt(info["fetched"])
         homes_d = homes(pages)
@@ -284,8 +302,13 @@ def tiered_sweep(state: dict, cold: dict, page_rows: torch.Tensor,
     ``fabric`` (:class:`ShardedPoolCfg`) shards the cold pool: the budget
     becomes per NIC and prefetch deadlines near / far by home shard
     (stream s lives on shard ``s % n_shards``); ``link_budget`` is then
-    ignored. ``cold`` stays in page-id order: the bytes move by the same
-    gather launches as on one shard.
+    ignored. ``cold`` stays in page-id order. Without ``mesh`` the bytes
+    move by the same gather launches as on one shard; with ``mesh`` (a
+    DeviceMesh with a ``"fabric"`` dim of ``n_shards`` ranks, every rank
+    calling with the same arguments) each rank reads only its home slice
+    of ``cold``, placed anew each call, and the pages move in a ring
+    through the gather kernels; every rank's state and ``info`` are then
+    bitwise the flat plane's.
 
     ``home_map`` (``int32[n_pages]``, the §12 lifecycle's time-varying
     homes, e.g. :meth:`PageLifecycle.home_map`) replaces the placement
@@ -326,8 +349,9 @@ def tiered_sweep(state: dict, cold: dict, page_rows: torch.Tensor,
         if comp_map is not None:
             lifecycle["comp"] = torch.as_tensor(comp_map,
                                                 device=dev).to(torch.bool)
+    cold, gather = _data_plane(cold, geom, async_datapath, fabric, mesh)
     return _sweep_fn(state, cold, sched, geom, async_datapath, fabric,
-                     lifecycle, int(decompress_delay))
+                     gather, lifecycle, int(decompress_delay))
 
 
 def tiered_slot_table_local(state: dict, page_rows: torch.Tensor

@@ -10,10 +10,11 @@ written page in every stream's hot tier, sweeps each request's context
 pages through its hot pool and serves attention from the hot slots, pinned
 **bitwise** against the flat pool every step.
 
-``--shards > 1`` shards the cold pool over home shards on the flat data
-plane (the reference builds a device mesh there; the port's
-``torch.distributed`` twin of that plane is ROADMAP queue 1 item 5, and
-the reference pins the two planes bitwise equal). ``--chaos`` adds
+``--shards > 1`` shards the cold pool over home shards: on the mesh
+plane when given the fabric mesh (one home slice a rank, pages moving in
+a ring; the CLI builds it under ``torchrun --nproc-per-node N``), else on
+the flat data plane; the two planes are bitwise equal.
+``--chaos`` adds
 :func:`chaos_sidecar`, run on the serve's device. The per-step query comes
 from a
 ``torch.Generator`` seeded with ``100 + t`` (the reference draws it with
@@ -68,7 +69,7 @@ def find_dense_kv(state) -> tuple[torch.Tensor, torch.Tensor] | \
 
 def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
                        max_len: int, reg: Registry | None = None,
-                       trace_path: str | None = None) -> dict:
+                       trace_path: str | None = None, mesh=None) -> dict:
     """Replay the decode window through the tiered paged-KV data path.
 
     ``args`` carries the CLI's ``page_size``, ``streams``, ``chunk``,
@@ -78,7 +79,9 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
     timed window, into the page-lifecycle event log on the global
     chunk-step clock, written as a Chrome trace + JSONL (with the link and,
     sharded, the per-NIC demand counter tracks), and the event-type totals
-    are pinned against the final pool counters.
+    are pinned against the final pool counters. ``mesh`` (with ``shards >
+    1``) is the fabric DeviceMesh of the mesh plane; ``None`` is the flat
+    plane.
     """
     ps = args.page_size
     npps = -(-max_len // ps)
@@ -134,6 +137,9 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
                                 placement=args.placement,
                                 link_budget=args.link_budget,
                                 near_delay=1, far_delay=args.far_delay)
+        # append_kv writes the pool every step, so tiered_sweep takes this
+        # rank's home slice anew each call, as the reference re-places the
+        # whole pool
 
     reg = reg if reg is not None else Registry()
     attn_mode = normalize_attn_kernel(getattr(args, "attn_kernel", "ref"))
@@ -163,7 +169,7 @@ def serve_batch_tiered(cfg, state, args, B: int, prompt_len: int,
             tstate, info = tiered_sweep(tstate, cold, rows, geom,
                                         async_datapath=args.async_datapath,
                                         link_budget=args.link_budget,
-                                        fabric=fabric)
+                                        fabric=fabric, mesh=mesh)
             sp.sync = info
         with reg.span("tiered_attention") as sp:
             tiered, resident = tiered_attention(q, tstate, rows, lengths,

@@ -13,8 +13,13 @@ version. The
 per-step query comes from a ``torch.Generator`` seeded with ``1000 + t``.
 The engine updates its cold pool and tiered state in place between steps.
 ``shards > 1`` shards the cold pool (``placement``, ``far_delay``, a
-per-NIC ``link_budget``) on the flat data plane; a ``mesh`` (ROADMAP
-queue 1 item 5) raises here.
+per-NIC ``link_budget``). With a fabric ``mesh`` (the serve CLI builds one
+when a launcher starts it as ``shards`` ranks) the sweep runs on the mesh
+plane: every rank serves the same requests with the same executor, so the
+metadata and the tokens are replicated and only the cold pool's bytes are
+read from each rank's home slice, moving between ranks in a ring. Without
+one it runs on the flat data plane (the reference forces host devices
+there).
 
 ``migration`` (a :class:`repro_torch.paging.lifecycle.MigrationCfg`) runs
 the §12 page lifecycle: a host-side :class:`PageLifecycle` between steps
@@ -114,8 +119,8 @@ class ServingEngine:
     ``executor`` needs ``begin/end``, ``prefill_chunk``, ``decode`` and the
     ``n_kv_heads / head_dim / dtype`` attributes (``n_q_heads`` optional);
     its K/V may be tensors or numpy arrays. ``device=None`` means CUDA.
-    ``mesh`` must be ``None``: with ``shards > 1`` the engine serves the
-    sharded cold pool's flat data plane.
+    ``mesh`` (with ``shards > 1``) is the fabric DeviceMesh of the mesh
+    plane; ``None`` serves the flat plane.
     """
 
     def __init__(self, config: ServeConfig, executor, device=None,
@@ -160,12 +165,13 @@ class ServingEngine:
         self.tstate = tiered_init(self.geom, c.slots, self.dtype, self.device)
         self.pool = init_paged_kv(1, n_pages, c.page_size, hkv, dh,
                                   self.dtype, self.device)
-        self.fabric = None
+        self.fabric = self.mesh = None
         if c.shards > 1:
             self.fabric = ShardedPoolCfg(
                 n_shards=c.shards, placement=c.placement,
                 link_budget=c.link_budget, near_delay=1,
                 far_delay=c.far_delay)
+            self.mesh = mesh
         check_fabric_topology(n_pages, self.fabric or ShardedPoolCfg(), mesh)
         self.reg = Registry()
         self.phases: list[RequestPhase] = []
@@ -221,7 +227,7 @@ class ServingEngine:
                 self.tstate, cold, rows_t, self.geom,
                 async_datapath=self.cfg.async_datapath,
                 link_budget=self.cfg.link_budget, fabric=self.fabric,
-                **sweep_kw)
+                mesh=self.mesh, **sweep_kw)
             sp.sync = info
         mode = normalize_attn_kernel(self.cfg.attn_kernel)
         with self.reg.span("tiered_attention") as sp:

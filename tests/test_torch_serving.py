@@ -207,16 +207,22 @@ def test_engine_synthetic_bf16_gqa_drains_clean():
 
 
 def test_unported_engine_options_raise():
-    """A mesh raises; the §12 lifecycle builds its host mirror (a disabled
-    config none, ``tests/test_torch_serving_lifecycle.py`` holds its runs
-    against the reference); ``shards > 1`` builds the sharded engine on
-    the flat data plane, its pool rounded up to split over the shards
-    (``tests/test_torch_sharded.py`` holds its runs against the
-    reference)."""
+    """A mesh whose fabric axis is not the shard count raises the
+    reference's error (``tests/test_torch_fabric_mesh.py`` runs the mesh
+    plane); the §12 lifecycle builds its host mirror (a disabled config
+    none, ``tests/test_torch_serving_lifecycle.py`` holds its runs against
+    the reference); ``shards > 1`` without a mesh builds the sharded
+    engine on the flat data plane, its pool rounded up to split
+    over the shards (``tests/test_torch_sharded.py`` holds its runs
+    against the reference)."""
+    import types
+
     from repro_torch.paging.lifecycle import MigrationCfg
     ex = SyntheticExecutor(2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServingEngine(ServeConfig(shards=2), ex, device="cpu", mesh=object())
+    mesh = types.SimpleNamespace(mesh_dim_names=("fabric",), shape=(4,))
+    with pytest.raises(ValueError, match="mesh fabric axis 4 != n_shards 2"):
+        ServingEngine(ServeConfig(shards=2), ex, device="cpu", mesh=mesh)
+    assert ServingEngine(ServeConfig(shards=2), ex, device="cpu").mesh is None
     eng = ServingEngine(ServeConfig(shards=2, migration=MigrationCfg(
         compressed=True, far_capacity=4)), ex, device="cpu")
     assert eng.lifecycle.report()["per_shard"] == [eng.n_pages // 2] * 2

@@ -1,7 +1,8 @@
 """Port: the sharded cold pool's consume scan and the chaos copy against the
 reference.
 
-* ``place_perm`` / ``place_cold`` and the topology checks;
+* ``place_perm`` / ``place_cold`` and the topology checks (a mesh whose
+  ``"fabric"`` dim is not the shard count raises the reference's error);
 * ``repro_torch.fabric.chaos`` against ``repro.fabric.chaos``: the spec's
   JSON round trip, ``compile_chaos``'s tables, the Q8 estimator and the
   re-home rule;
@@ -17,6 +18,7 @@ Payloads hold integers (exact in float32), so the checksums compare
 exactly.
 """
 
+import types
 from dataclasses import astuple
 
 import jax.numpy as jnp
@@ -70,8 +72,13 @@ def test_placement_and_topology(G, placement):
         _same(want[k], got[k], k)
     with pytest.raises(ValueError, match="not divisible"):
         tsp.check_fabric_topology(N_PAGES + 1, tf)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsp.check_fabric_topology(N_PAGES, tf, mesh=object())
+    mesh = types.SimpleNamespace(mesh_dim_names=("fabric",), shape=(G,))
+    tsp.check_fabric_topology(N_PAGES, tf, mesh=mesh)
+    for bad in (types.SimpleNamespace(mesh_dim_names=("fabric",),
+                                      shape=(2 * G,)),
+                types.SimpleNamespace(mesh_dim_names=("data",), shape=(G,))):
+        with pytest.raises(ValueError, match="mesh fabric axis"):
+            tsp.check_fabric_topology(N_PAGES, tf, mesh=bad)
     geom = tps.PrefetchedStream(n_pages=N_PAGES, n_slots=N_SLOTS,
                                 page_elems=3, ring_size=4)
     sched = torch.zeros((S, 2), dtype=torch.int32)

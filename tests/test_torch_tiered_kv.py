@@ -178,7 +178,9 @@ def test_bf16_hand_over_round_trips_bytes():
 
 
 def test_undersized_hot_pool_and_unported_options_raise():
-    """An undersized hot tier and a mesh raise; the §12 lifecycle maps at
+    """An undersized hot tier and a mesh of the wrong fabric size raise
+    (``tests/test_torch_fabric_mesh.py`` runs the mesh plane); the §12
+    lifecycle maps at
     their t = 0 values (the static homes, nothing compressed) reduce the
     sweep bitwise to the two-tier sweep; a fabric of more than one shard
     sweeps (``tests/test_torch_sharded.py`` holds it against the
@@ -207,9 +209,11 @@ def test_undersized_hot_pool_and_unported_options_raise():
             for k in two[group]:
                 assert torch.equal(two[group][k], mig[group][k]), k
     from repro_torch.paging.sharded_pool import ShardedPoolCfg
-    with pytest.raises(NotImplementedError, match="item 5"):
+    import types
+    mesh = types.SimpleNamespace(mesh_dim_names=("fabric",), shape=(4,))
+    with pytest.raises(ValueError, match="mesh fabric axis 4 != n_shards 2"):
         tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=2),
-                        mesh=object())
+                        mesh=mesh)
     with pytest.raises(ValueError, match="not divisible"):
         tt.tiered_sweep(st, cold, rows, tg, fabric=ShardedPoolCfg(n_shards=3))
     _, info = tt.tiered_sweep(st, cold, rows, tg,
