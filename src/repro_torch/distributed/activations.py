@@ -15,7 +15,11 @@ the gradient back), as ``with_sharding_constraint`` pins an XLA array:
   weight products, and each branch output before the residual add (its
   gradient then reaches the products gathered on the sequence);
 * :func:`decode_logits_constraint`: decode attention's logits
-  ``[B, Hkv, G, T]``.
+  ``[B, Hkv, G, T]``;
+* :func:`decode_state_constraint`: a new decode state's leaves, as the
+  models' ``init_decode_state`` makes them (the dry run's cells place
+  them by the models' ``decode_state_specs``, as the reference's jitted
+  steps take a state of those shardings).
 
 The port calls the last three wherever the reference's perf flags would
 (``attn_reshard``, ``mm_gather``, ``decode_tsh``), whatever the flags:
@@ -86,6 +90,20 @@ def decode_logits_constraint(s):
     return s if fn is None or not is_dtensor(s) else fn(s)
 
 
+def set_decode_state_sharding(fn) -> None:
+    """Install a ``(state, specs) -> state`` hook that places the leaves
+    of a new decode state by their logical axes ``specs`` (``None``
+    clears it)."""
+    _state.decode_state = fn
+
+
+def decode_state_constraint(state: dict, specs):
+    """``state`` through the installed hook, ``specs()`` its leaves'
+    logical axes (called only when a hook is installed)."""
+    fn = getattr(_state, "decode_state", None)
+    return state if fn is None else fn(state, specs())
+
+
 def replicate(x):
     """A DTensor redistributed to ``Replicate()`` on every mesh dim (the
     all-gather or all-reduce GSPMD would insert); any other tensor as it
@@ -95,6 +113,28 @@ def replicate(x):
         return x
     from torch.distributed.tensor import Replicate
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def split_evenly(x, dim: int, groups: int):
+    """``x`` itself, or, for a DTensor whose dim ``dim`` is sharded over
+    mesh dims whose product does not divide ``groups`` (the heads that
+    dim is about to be unflattened into), ``x`` with those mesh dims
+    replicated first: the reshard GSPMD inserts before such a reshape,
+    which DTensor refuses on an uneven split."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh, pl = x.device_mesh, list(x.placements)
+    dim %= x.dim()
+    on = [i for i, p in enumerate(pl) if p.is_shard() and p.dim % x.dim() == dim]
+    split = 1
+    for i in on:
+        split *= mesh.size(i)
+    if groups % split == 0:
+        return x
+    for i in on:
+        pl[i] = Replicate()
+    return x.redistribute(mesh, pl)
 
 
 class _GradAs(torch.autograd.Function):
@@ -158,5 +198,5 @@ def clear_hooks() -> None:
     """Clear every installed hook."""
     set_activation_sharding(None, None)
     for setter in (set_attn_sharding, set_matmul_input_sharding,
-                   set_decode_logits_sharding):
+                   set_decode_logits_sharding, set_decode_state_sharding):
         setter(None)

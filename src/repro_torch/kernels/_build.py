@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled on its own, at first use, into
 ``build/kernels/<stem>-<hash>.so`` at the root of the checkout (listed in
-``.gitignore``). The hash covers the source bytes and the compiler flags, so
-a changed source rebuilds and an unchanged one is loaded as it is. The
+``.gitignore``). The hash covers the source bytes, those of the ``csrc/``
+files it includes, and the compiler flags, so a changed source rebuilds
+and an unchanged one is loaded as it is. The
 sources expose a plain C interface; nothing here includes PyTorch's
 headers, which keeps a build to seconds.
 
@@ -23,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -58,8 +60,25 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(src: pathlib.Path, seen: set | None = None) -> bytes:
+    """``src``'s bytes followed by those of every file of ``csrc/`` it
+    includes with quotes, recursively (each once)."""
+    seen = set() if seen is None else seen
+    seen.add(src)
+    data = src.read_bytes()
+    out = [data]
+    for name in _INCLUDE.findall(data):
+        dep = CSRC / name.decode()
+        if dep.exists() and dep not in seen:
+            out.append(_source_bytes(dep, seen))
+    return b"".join(out)
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(_source_bytes(src) + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

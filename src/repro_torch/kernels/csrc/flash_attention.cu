@@ -17,7 +17,10 @@
 // are skipped: the reference's update leaves (m, l, acc) unchanged on such
 // a tile, so skipping is exact.
 //
-// Per tile, as _flash_kernel: s = sm_scale * (q . k), masked to -1e30;
+// Per tile, as _flash_kernel: s = sm_scale * (q . k), soft-capped to
+// softcap * tanhf(s / softcap) where the caller sets a cap (the reference
+// model's attn_logit_softcap, before the mask; the Pallas kernel has no
+// cap, its twin blocked_attention has), masked to -1e30;
 // m_new = max(m, rowmax s); m_safe = (m_new <= -1e30 / 2) ? 0 : m_new;
 // p = masked ? 0 : expf(s - m_safe); corr = (m <= -1e30 / 2) ? 0 :
 // expf(m - m_safe); l = l * corr + sum p; acc = acc * corr + p . v; and at
@@ -99,6 +102,15 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// 0: this library's attention kernels take no cap (softcap 0). 1: they
+// all apply one (flash_attention_softcap.cu, which includes this file: its
+// own library, built beside this one, so that the capped instantiations
+// add nothing to this file's build time); there the split and pack passes
+// are left out, since the capped route calls this library's.
+#ifndef FLASH_SOFTCAP
+#define FLASH_SOFTCAP 0
+#endif
 
 namespace {
 namespace tc {
@@ -550,8 +562,10 @@ __device__ __forceinline__ void tile_range(int first, int last, int Sk,
 // reach; the block loads the tiles any of its rows reach, and every thread
 // meets every stage's release, so a warpgroup whose rows are all masked
 // (or past Sq) still keeps the ring turning. ``nb`` is the batch count:
-// part p of batch b is batch p * nb + b of the tensor maps.
-template <int DHP, int PARTS>
+// part p of batch b is batch p * nb + b of the tensor maps. CAP applies
+// the soft-cap (``softcap`` > 0) to each scaled score; the cap-free
+// instantiations (CAP false) compile as if it were not there.
+template <int DHP, int PARTS, bool CAP>
 __global__ void __launch_bounds__(THREADS * Tile<DHP, PARTS>::NWG,
                                   Tile<DHP, PARTS>::NWG == 1 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -561,7 +575,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    typename Tile<DHP, PARTS>::Out* __restrict__ o,
                    long long osb, long long osh, long long oss, int G,
                    int nb, int Sq, int Sk, int dh, int causal, int window,
-                   int q_offset, float sm_scale) {
+                   int q_offset, float sm_scale, float softcap) {
   using T = Tile<DHP, PARTS>;
   constexpr int NWG = T::NWG, BN = T::BN, NB = T::NB;
   constexpr int NO = DHP / 2;   // O fragment, floats a thread
@@ -619,6 +633,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int r0 = warp * 16 + (lane >> 2);
   const int qp0 = wq0 + r0 + q_offset, qp1 = qp0 + 8;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float inv_cap = CAP ? 1.f / softcap : 0.f;
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
@@ -665,6 +680,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         float x = s[j] * sm_scale;
+        // tanhf, not tanh.approx.f32 (2^-11 relative): the split route's
+        // 2e-5 limit holds the capped scores too
+        if constexpr (CAP) x = tanhf(x * inv_cap) * softcap;
         if (!whole) {
           const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
           const int qp = (j & 2) ? qp1 : qp0;
@@ -821,14 +839,15 @@ bool encode_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The DHP / PARTS instantiation on bf16 views q, k, v (on the split route
-// the [PARTS * B, H, S, dh] views of the parts, batch p * B + b part p of
-// batch b). Returns cudaErrorInvalidValue where a tensor map is refused.
-template <int DHP, int PARTS>
+// The DHP / PARTS / CAP instantiation on bf16 views q, k, v (on the split
+// route the [PARTS * B, H, S, dh] views of the parts, batch p * B + b part
+// p of batch b). Returns cudaErrorInvalidValue where a tensor map is
+// refused.
+template <int DHP, int PARTS, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Sk, int dh, int causal,
            const long long* st, int window, int q_offset, float sm_scale,
-           cudaStream_t stream) {
+           float softcap, cudaStream_t stream) {
   using T = Tile<DHP, PARTS>;
   CUtensorMap qm, km, vm;
   int qp, kp, vp;
@@ -839,22 +858,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !encode_bhsd(&vm, v, PARTS * B, Hkv, Sk, dh, st[6], st[7], st[8],
                    T::BN, &vp))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_wgmma_kernel<DHP, PARTS>;
+  auto kern = flash_wgmma_kernel<DHP, PARTS, CAP>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)T::SMEM);
   const dim3 grid((Sq + BM * T::NWG - 1) / (BM * T::NWG), Hq, B);
   kern<<<grid, THREADS * T::NWG, T::SMEM, stream>>>(
       qm, km, vm, qp, kp, vp, (typename T::Out*)o, st[9], st[10], st[11],
-      Hq / Hkv, B, Sq, Sk, dh, causal, window, q_offset, sm_scale);
+      Hq / Hkv, B, Sq, Sk, dh, causal, window, q_offset, sm_scale, softcap);
   return (int)cudaGetLastError();
 }
 
-// Resources of the DHP / PARTS instantiation into out (see
+// Resources of the DHP / PARTS / CAP instantiation into out (see
 // flash_attention_wgmma_resources)
-template <int DHP, int PARTS>
+template <int DHP, int PARTS, bool CAP>
 int resources(int* out) {
   using T = Tile<DHP, PARTS>;
-  const void* fn = (const void*)flash_wgmma_kernel<DHP, PARTS>;
+  const void* fn = (const void*)flash_wgmma_kernel<DHP, PARTS, CAP>;
   const int threads = THREADS * T::NWG;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
@@ -929,21 +948,27 @@ int split_launch(const void* x, void* out, int B, int H, int S, int dh,
 }  // namespace
 
 // Strides are in elements, (batch, head, sequence) for each of q, k, v, o.
-// Each entry returns cudaGetLastError() after the launch;
+// softcap is 0 in this library and a finite cap > 0 in the soft-capped one
+// (FLASH_SOFTCAP). Each entry returns cudaGetLastError() after the launch;
 // cudaErrorInvalidValue for a head dim outside (0, dhp], a dhp no
-// instantiation has, or query heads that KV heads do not divide.
+// instantiation has, query heads that KV heads do not divide, or a
+// softcap the library does not take.
 #define FLASH_TC_ARGS                                                        \
   const void *q, const void *k, const void *v, void *o, int B, int Hq,       \
       int Hkv, int Sq, int Sk, int dh, int causal, long long q_sb,           \
       long long q_sh, long long q_ss, long long k_sb, long long k_sh,        \
       long long k_ss, long long v_sb, long long v_sh, long long v_ss,        \
       long long o_sb, long long o_sh, long long o_ss, int window,            \
-      int q_offset, float sm_scale, int dhp, void *stream
+      int q_offset, float sm_scale, float softcap, int dhp, void *stream
 #define FLASH_TC(D, P)                                                       \
-  return tc::launch<D, P>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, causal, st,    \
-                          window, q_offset, sm_scale, (cudaStream_t)stream)
+  return tc::launch<D, P, FLASH_SOFTCAP>(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, \
+                                         causal, st, window, q_offset,       \
+                                         sm_scale, softcap,                  \
+                                         (cudaStream_t)stream)
 #define FLASH_TC_STRIDES                                                     \
-  if (dh <= 0 || dh > dhp || Hkv <= 0 || Hq % Hkv)                           \
+  if (dh <= 0 || dh > dhp || Hkv <= 0 || Hq % Hkv ||                         \
+      !(FLASH_SOFTCAP ? softcap > 0.f && softcap <= 3.4e38f                  \
+                      : softcap == 0.f))                                     \
     return (int)cudaErrorInvalidValue;                                       \
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaSuccess;                 \
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,              \
@@ -986,6 +1011,8 @@ extern "C" int flash_attention_split_f32_launch(FLASH_TC_ARGS) {
 #undef FLASH_TC
 #undef FLASH_TC_STRIDES
 
+#if !FLASH_SOFTCAP
+
 // x [B, H, S, dh] f32 (element strides sb, sh, ss; dh contiguous) into out,
 // a contiguous [3, B, H, S, dhp] bf16 buffer (dhp >= dh): its hi, mid and lo
 // parts, columns past dh zero. Returns a cudaError_t.
@@ -1006,6 +1033,8 @@ extern "C" int pack_bf16_launch(const void* x, void* out, int B, int H, int S,
                                             ss, (cudaStream_t)stream);
 }
 
+#endif  // !FLASH_SOFTCAP
+
 // Resources of the tensor-core instantiation of padded head dim ``dhp``
 // (the bf16 route's 64, 80, 128, 160, 192, 256 with f32 0; the split
 // route's 64, 128, 192, 256 with f32 1): out[0] registers a thread,
@@ -1015,20 +1044,20 @@ extern "C" int pack_bf16_launch(const void* x, void* out, int B, int H, int S,
 extern "C" int flash_attention_wgmma_resources(int dhp, int f32, int* out) {
   if (f32) {
     switch (dhp) {
-      case 64: return tc::resources<64, 3>(out);
-      case 128: return tc::resources<128, 3>(out);
-      case 192: return tc::resources<192, 3>(out);
-      case 256: return tc::resources<256, 3>(out);
+      case 64: return tc::resources<64, 3, FLASH_SOFTCAP>(out);
+      case 128: return tc::resources<128, 3, FLASH_SOFTCAP>(out);
+      case 192: return tc::resources<192, 3, FLASH_SOFTCAP>(out);
+      case 256: return tc::resources<256, 3, FLASH_SOFTCAP>(out);
     }
     return (int)cudaErrorInvalidValue;
   }
   switch (dhp) {
-    case 64: return tc::resources<64, 1>(out);
-    case 80: return tc::resources<80, 1>(out);
-    case 128: return tc::resources<128, 1>(out);
-    case 160: return tc::resources<160, 1>(out);
-    case 192: return tc::resources<192, 1>(out);
-    case 256: return tc::resources<256, 1>(out);
+    case 64: return tc::resources<64, 1, FLASH_SOFTCAP>(out);
+    case 80: return tc::resources<80, 1, FLASH_SOFTCAP>(out);
+    case 128: return tc::resources<128, 1, FLASH_SOFTCAP>(out);
+    case 160: return tc::resources<160, 1, FLASH_SOFTCAP>(out);
+    case 192: return tc::resources<192, 1, FLASH_SOFTCAP>(out);
+    case 256: return tc::resources<256, 1, FLASH_SOFTCAP>(out);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -37,6 +37,14 @@ Two routes, both on the tensor cores, chosen in one place, :func:`route`:
   limit, 2e-5 absolute. Counted by ``flash_attention_split_f32_launches``
   as well (the split passes by ``split_bf16x3_launches``).
 
+Attention logit soft-capping (``softcap`` > 0: each scaled score becomes
+``softcap * tanh(s / softcap)`` before the mask, as the reference model's
+``attn_logit_softcap``) runs in the same kernel on either route, as the
+instantiations of ``csrc/flash_attention_softcap.cu`` (a library of its
+own, built beside the cap-free one; one ``tanhf`` a score), counted by
+``flash_attention_softcap_launches`` as well. The cap-free instantiations
+are compiled as they were.
+
 ``flash_attention_launches`` counts every attention launch of either
 route. :func:`tensor_core_resources` reads the registers, spill bytes,
 shared memory and residency of an instantiation. A CUDA tensor never
@@ -62,9 +70,11 @@ flash_attention_split_f32_launches = _build.counter(
     "flash_attention_split_f32")
 split_bf16x3_launches = _build.counter("split_bf16x3")
 pack_bf16_launches = _build.counter("pack_bf16")
+flash_attention_softcap_launches = _build.counter("flash_attention_softcap")
 
 _ARGS = ([_build.VP] * 4 + [_build.I32] * 7 + [_build.I64] * 12
-         + [_build.I32] * 2 + [_build.F32, _build.I32, _build.VP])
+         + [_build.I32] * 2 + [_build.F32, _build.F32, _build.I32,
+                               _build.VP])
 _SPLIT_ARGS = ([_build.VP] * 2 + [_build.I32] * 5 + [_build.I64] * 3
                + [_build.VP])
 #: largest head dim the kernel takes
@@ -78,6 +88,8 @@ _ENTRY = {"wgmma": "flash_attention_wgmma_launch",
           "split_f32": "flash_attention_split_f32_launch"}
 _COUNTER = {"wgmma": flash_attention_wgmma_launches,
             "split_f32": flash_attention_split_f32_launches}
+#: the library of the attention kernels, by whether they soft-cap
+_LIB = {False: "flash_attention", True: "flash_attention_softcap"}
 
 
 def _check(q, k, v) -> None:
@@ -157,15 +169,16 @@ def tile_width(name: str, dh: int) -> int:
                      f"{TILES[name][-1]}] of the {name} route")
 
 
-def tensor_core_resources(dh: int, dtype=torch.bfloat16) -> dict:
+def tensor_core_resources(dh: int, dtype=torch.bfloat16,
+                          softcap: bool = False) -> dict:
     """Registers and local (spill) bytes a thread, dynamic shared bytes,
     threads a block and blocks resident an SM of the tensor-core
     instantiation that takes head dim ``dh`` in ``dtype`` (bfloat16: the
-    wgmma route; float32: the split route), as the CUDA runtime reports
-    them for the current card."""
+    wgmma route; float32: the split route), cap-free or soft-capped, as
+    the CUDA runtime reports them for the current card."""
     name = _TC_ROUTE[dtype]
     dhp = tile_width(name, dh)
-    fn = _build.bind("flash_attention", "flash_attention_wgmma_resources",
+    fn = _build.bind(_LIB[bool(softcap)], "flash_attention_wgmma_resources",
                      [_build.I32, _build.I32, ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 5)()
     _build.check(fn(dhp, int(name == "split_f32"), out),
@@ -222,12 +235,17 @@ def pack_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, sm_scale: float | None = None
-                        ) -> torch.Tensor:
+                        q_offset: int = 0, sm_scale: float | None = None,
+                        softcap: float = 0.0) -> torch.Tensor:
     """q [B,Hq,Sq,dh], k/v [B,Hkv,Sk,dh] (any strides with ``dh``
     contiguous) -> o [B,Hq,Sq,dh] laid out as q. ``sm_scale`` defaults to
-    ``1 / sqrt(dh)``."""
+    ``1 / sqrt(dh)``; ``softcap`` > 0 soft-caps the scaled scores, 0 leaves
+    them as they are."""
     _check(q, k, v)
+    softcap = float(softcap)
+    if not (softcap == 0.0 or 0.0 < softcap < float("inf")):
+        raise ValueError(f"flash_attention kernel: softcap {softcap} is "
+                         "neither 0 (off) nor a finite cap > 0")
     B, Hq, Sq, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)           # q's strides, dh contiguous as in q
@@ -240,12 +258,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                    for t, p in zip((q, k, v), packed(q, k, v)))
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     name = _ENTRY[which]
-    fn = _build.bind("flash_attention", name, _ARGS)
+    fn = _build.bind(_LIB[softcap > 0], name, _ARGS)
     code = _build.launch(fn, o.get_device(), q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), o.data_ptr(), B, Hq, Hkv, Sq, Sk, dh,
                          int(bool(causal)), *strides, int(window),
-                         int(q_offset), scale, tile_width(which, dh))
+                         int(q_offset), scale, softcap,
+                         tile_width(which, dh))
     _build.check(code, name)
     flash_attention_launches.n += 1
     route_counter(which).n += 1
+    if softcap > 0:
+        flash_attention_softcap_launches.n += 1
     return o

@@ -17,9 +17,10 @@ from .ref import flash_attention_ref
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, use_kernel: bool = True
-                    ) -> torch.Tensor:
-    """q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh] -> [B,Sq,Hq,dh] in q's dtype."""
+                    q_offset: int = 0, softcap: float = 0.0,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh] -> [B,Sq,Hq,dh] in q's dtype;
+    ``softcap`` > 0 soft-caps the scaled scores before the mask."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention is forward-only: an input requires grad under "
@@ -29,8 +30,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if use_kernel and q.is_cuda:
         o = flash_attention_fwd(qt, kt, vt, causal=causal, window=window,
-                                q_offset=q_offset)
+                                q_offset=q_offset, softcap=softcap)
     else:
         o = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
-                                q_offset=q_offset)
+                                q_offset=q_offset, softcap=softcap)
     return o.transpose(1, 2)

@@ -2,7 +2,9 @@
 
 Counterpart of ``src/repro/kernels/flash_attention/ref.py``: the same
 ``[B, H, S, dh]`` contract as the kernel, scores in float32 over K/V
-repeated to the query heads, causal / sliding-window masks placed by
+repeated to the query heads, soft-capped (``softcap`` > 0: ``tanh(s /
+softcap) * softcap``, before the mask, as the reference's
+``full_attention``), causal / sliding-window masks placed by
 ``q_offset``, fully masked rows 0 (not NaN). And the plain versions of
 the passes that feed the kernel, the split route's
 :func:`split_bf16x3_ref` and the pack :func:`pack_bf16_ref`, which only
@@ -20,7 +22,8 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
     """q [B,Hq,Sq,dh], k/v [B,Hkv,Sk,dh] -> [B,Hq,Sq,dh] in q's dtype."""
     B, Hq, Sq, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -28,6 +31,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kx = k.repeat_interleave(G, dim=1).float()
     vx = v.repeat_interleave(G, dim=1).float()
     s = torch.einsum("bhqd,bhsd->bhqs", q.float(), kx) / math.sqrt(dh)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)

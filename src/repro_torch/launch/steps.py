@@ -29,11 +29,32 @@ backward over batch-sharded ids). Each block's branch output passes the
 matmul-input hook too, so that the residual's sequence-sharded gradient
 reaches the branch's weight products gathered on the sequence (2.11
 cannot flatten ``[B, S]`` sharded on both). The parameters are never
-gathered whole up front. ``build_cell`` itself waits
-for the input-shape specs of the cost passes (ROADMAP queue 1 item 4d).
+gathered whole up front.
+
+:func:`build_cell` assembles one (arch x input shape x mesh) cell of the
+dry run (``launch.dryrun``), as the reference's does: the step, its
+inputs (``meta`` tensors from ``configs.input_specs``, where the
+reference's are ``ShapeDtypeStruct``s) and the PartitionSpec parts of
+every input, from the logical-axis rules. The train cell is
+:func:`make_sharded_train_step` (AdamW, Adafactor for the 400B MoE); the
+prefill cell ``model.prefill`` over the whole context; the decode cell
+one ``decode_step`` and the ``argmax`` of its logits against a state of
+the shape's context, placed by the model's ``decode_state_specs``. A
+cell's ``step_fn(*args)`` places its inputs by those parts first, as a
+jitted step takes its ``in_shardings``, installs the reference's hooks
+for the cell's kind (the residual's sequence sharding, H1's attention
+reshard and H4's matmul-input gather for train and prefill; H5's
+decode-logits sequence shards for decode; the decode state's placement
+for both serve kinds), and runs on a DeviceMesh; the parts alone need
+only the mesh's axis sizes. The port's ``prefill`` calls none of the
+activation hooks (the reference's runs its train block): its layout is
+DTensor's propagation from the placed weights and batch.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
 
 import torch
 from torch import nn
@@ -41,8 +62,8 @@ from torch import nn
 from repro_torch import configs as cfglib
 from repro_torch.distributed import activations as acts
 from repro_torch.distributed.sharding import (batch_shardings,
-                                              named_sharding_for,
-                                              placements_for,
+                                              mesh_shape, named_sharding_for,
+                                              placements_for, rules_for,
                                               shardings_for_tree)
 from repro_torch.optim import param_tree
 from repro_torch.optim.common import stacked, tree_key
@@ -237,3 +258,191 @@ def make_sharded_train_step(model, opt_update, mesh, rules: dict):
         return full(loss.detach()), full(info["grad_norm"])
 
     return train_step
+
+
+@dataclasses.dataclass
+class Cell:
+    """One dry-run cell: ``step_fn(*args)`` runs the step once (on a
+    DeviceMesh), ``shardings`` holds the PartitionSpec parts of its
+    inputs, ``model`` the model built on ``meta``."""
+    arch: str
+    shape: str
+    cfg: Any
+    kind: str                      # train | prefill | decode
+    step_fn: Callable | None
+    args: tuple                    # meta tensors (unplaced)
+    skip: str | None = None
+    shardings: dict | None = None
+    model: Any = None
+
+
+def batch_axes(multi_pod: bool):
+    return ("pod", "data") if multi_pod else "data"
+
+
+def state_shapes_batch_divisible(state, specs, mesh, bax) -> bool:
+    """Whether the batch axes ``bax`` divide the decode state's batch (the
+    ``"batch"`` dim of its first leaf of two dims or more, by its logical
+    axes ``specs``), as the reference decides the token's placement."""
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in ((bax,) if isinstance(bax, str) else bax):
+        n *= shape[a]
+    big = [(owner[k], ax) for owner, k, ax in _leaves(state, specs)
+           if owner[k].dim() >= 2]
+    b = big[0][0].shape[big[0][1].index("batch")] if big else 1
+    return b % n == 0
+
+
+def _leaves(tree: dict, parts: dict):
+    """``(owner, key, part)`` of each tensor ``owner[key]`` of a decode
+    state and its entry of a tree of the same structure (its parts, or its
+    logical axes); ``pos`` apart."""
+    for k, v in tree.items():
+        if k == "pos":
+            continue
+        if isinstance(v, torch.Tensor):
+            yield tree, k, parts[k]
+        elif isinstance(v, dict):
+            yield from _leaves(v, parts[k])
+        else:
+            for i, blk in enumerate(v):
+                yield from _leaves(blk, parts[k][i])
+
+
+def state_parts(specs: dict, state: dict, mesh, rules: dict) -> dict:
+    """The parts of a decode state's leaves from their logical axes
+    ``specs`` (a model's ``decode_state_specs()``); ``pos``, a host int,
+    is ``()``."""
+    body = lambda t: {k: v for k, v in t.items() if k != "pos"}
+    return dict(shardings_for_tree(body(specs), body(state), mesh, rules),
+                pos=())
+
+
+def place_tree(tree: dict, parts: dict, mesh) -> dict:
+    """The tensors of the decode state ``tree`` replaced by DTensors of
+    their ``parts`` on ``mesh``, in place."""
+    for owner, k, pt in _leaves(tree, parts):
+        if not _dtensor(owner[k]):
+            owner[k] = _place(owner[k], mesh, pt)
+    return tree
+
+
+def install_cell_hooks(mesh, rules: dict, kind: str) -> None:
+    """The reference's ``build_cell`` hooks for a cell of ``kind``:
+    :func:`install_train_hooks`'s for train and prefill (no decode-logits
+    hook); for decode only H5, the logits ``[B, Hkv, G, T]`` kept sharded
+    on ``T`` over ``kv_seq``'s axis. For the serve kinds also the
+    placement of a new decode state's leaves by their logical axes."""
+    if kind in ("train", "prefill"):
+        install_train_hooks(mesh, rules)
+    else:
+        acts.clear_hooks()
+
+        def logits_tsh(s):
+            parts = named_sharding_for(("batch", None, None, "kv_seq"),
+                                       tuple(s.shape), mesh, rules)
+            return s.redistribute(mesh, placements_for(parts, mesh))
+
+        acts.set_decode_logits_sharding(logits_tsh)
+    if kind != "train":
+        acts.set_decode_state_sharding(
+            lambda st, specs: place_tree(
+                st, state_parts(specs, st, mesh, rules), mesh))
+
+
+def build_cell(arch: str, shape: str, mesh, multi_pod: bool = False,
+               smoke: bool = False, opt_override: str | None = None,
+               extra_rules: dict | None = None) -> Cell:
+    """One (arch x shape x mesh) cell: the model on ``meta``, its inputs,
+    their parts under the mode's rules (with :func:`arch_rule_overrides`
+    and ``extra_rules``), and the step."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    spec = cfglib.input_specs(arch, shape, smoke=smoke)
+    cfg, sp = spec["cfg"], spec["shape"]
+    if spec["skip"]:
+        return Cell(arch, shape, cfg, sp.kind, None, (), skip=spec["skip"])
+    mode = "train" if sp.kind == "train" else "serve"
+    rules = rules_for(mode, multi_pod)
+    rules.update(arch_rule_overrides(arch, mode, multi_pod))
+    if extra_rules:
+        rules.update(extra_rules)
+    model = build_model(cfg, device="meta", seed=None,
+                        trainable=sp.kind == "train")
+    axes = model.param_specs()
+    shardings = {"params": {
+        name: named_sharding_for(axes[name], tuple(p.shape), mesh, rules)
+        for name, p in model.named_parameters()}}
+
+    def serve(fn):
+        def step(*args):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            if not _dtensor(model.embed):
+                place_params(model, mesh, rules)
+            install_cell_hooks(mesh, rules, sp.kind)
+            try:
+                with implicit_replication(), torch.no_grad():
+                    return fn(*args)
+            finally:
+                acts.clear_hooks()
+        return step
+
+    if sp.kind == "train":
+        opt_name = opt_override or OPT_FOR_ARCH.get(cfglib.canonical(arch),
+                                                    "adamw")
+        opt_init, opt_update = make_optimizer(opt_name, LR)
+        opt_state = opt_init(param_tree(model))
+        pspecs, pshapes = tree_specs(model)
+        shardings["opt_state"] = opt_state_shardings(opt_name, pspecs,
+                                                     pshapes, mesh, rules)
+        shardings["batch"] = batch_shardings(spec["batch"], mesh, rules)
+
+        def train_step(opt_state, batch, step):
+            fn = make_sharded_train_step(model, opt_update, mesh, rules)
+            return fn(opt_state, batch, step)
+
+        return Cell(arch, shape, cfg, sp.kind, train_step,
+                    (opt_state, spec["batch"], 0), shardings=shardings,
+                    model=model)
+
+    if sp.kind == "prefill":
+        shardings["batch"] = bsh = batch_shardings(spec["batch"], mesh,
+                                                   rules)
+
+        def prefill_step(batch):
+            b = {k: _place(v, mesh, bsh[k]) for k, v in batch.items()}
+            if cfg.family == "encdec":
+                return model.prefill(b["tokens"], sp.seq_len,
+                                     frames=b["frames"])
+            return model.prefill(b["tokens"], sp.seq_len,
+                                 positions3=b.get("positions3"),
+                                 embeds=b.get("embeds"))
+
+        return Cell(arch, shape, cfg, sp.kind, serve(prefill_step),
+                    (spec["batch"],), shardings=shardings, model=model)
+
+    state = spec["batch"]["state"]
+    bax = rules["batch"]
+    shardings["state"] = ssh = state_parts(model.decode_state_specs(),
+                                           state, mesh, rules)
+    shardings["token"] = tok = (bax if state_shapes_batch_divisible(
+        state, model.decode_state_specs(), mesh, bax) else None,)
+
+    def serve_step(token, state):
+        token = _place(token, mesh, tok)
+        place_tree(state, ssh, mesh)
+        logits, state = model.decode_step(token, state)
+        # the argmax over every vocabulary row of the batch
+        next_tok = acts.replicate(logits).argmax(-1).to(torch.int32)
+        # the reference's out_shardings: the token's and the state's
+        next_tok = next_tok.redistribute(mesh, placements_for(tok, mesh))
+        for owner, k, pt in _leaves(state, ssh):
+            owner[k] = owner[k].redistribute(mesh, placements_for(pt, mesh))
+        return next_tok, state
+
+    return Cell(arch, shape, cfg, sp.kind, serve(serve_step),
+                (spec["batch"]["token"], state), shardings=shardings,
+                model=model)

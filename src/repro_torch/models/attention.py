@@ -4,9 +4,11 @@
 Counterpart of ``repro.models.attention``. All share its contract:
 ``q [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` with ``Hq = G*Hkv``; softmax
 statistics in float32; outputs in the input dtype. Its TPU layout flags
-(``attn_bf16``, ``decode_tsh``) stay off, as in its default. Logit
-soft-capping is not ported (no config sets it, and the flash kernel has
-no soft-cap; ROADMAP queue 1 item 6).
+(``attn_bf16``, ``decode_tsh``) stay off, as in its default. Each takes
+the reference's ``softcap``: with a cap > 0 the scaled scores become
+``tanh(s / softcap) * softcap`` before the mask (the model's
+``attn_logit_softcap``); in :func:`blocked_attention` the flash kernel
+applies it in its score tile.
 
 * :func:`decode_attention` — one query position against a ``[B,T,...]``
   cache, masked to ``length``; plain PyTorch, as the reference's is jnp.
@@ -42,30 +44,35 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.activations import (decode_logits_constraint,
-                                                 is_dtensor, on_shards)
+                                                 is_dtensor, on_shards,
+                                                 split_evenly)
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
 
 def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """[B,S,Hq,dh] -> [B,S,Hkv,G,dh]."""
+    """[B,S,Hq,dh] -> [B,S,Hkv,G,dh] (a DTensor's heads gathered first
+    where their shards would not fall on whole KV heads)."""
     B, S, Hq, dh = q.shape
+    q = split_evenly(q, 2, n_kv)
     return q.reshape(B, S, n_kv, Hq // n_kv, dh)
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, causal: bool = True,
-                      window: int = 0) -> torch.Tensor:
+                      *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
     """GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``: causal
     (``window`` > 0: each query sees its last ``window`` keys) or, with
-    ``causal=False``, bidirectional."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+    ``causal=False``, bidirectional; ``softcap`` > 0 soft-caps the
+    scores."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
 
 
 def _attention_q_chunk(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q0: int, *, causal: bool, window: int,
-                       block_k: int) -> torch.Tensor:
+                       softcap: float, block_k: int) -> torch.Tensor:
     """Online-softmax sweep of all key blocks for one query chunk.
 
     ``qg [B,Hkv,G,Cq,dh]`` float32, pre-scaled; ``k``/``v [B,Sk,Hkv,dh]``;
@@ -83,6 +90,8 @@ def _attention_q_chunk(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kblk = k[:, j * block_k:(j + 1) * block_k].float()
         vblk = v[:, j * block_k:(j + 1) * block_k].float()
         s = torch.einsum("bkgqd,bskd->bkgqs", qg, kblk)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         kpos = j * block_k + torch.arange(block_k, device=dev)
         msk = torch.ones((Cq, block_k), dtype=torch.bool, device=dev)
         if causal:
@@ -116,18 +125,21 @@ def _split_heads(k: torch.Tensor):
 
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, window: int = 0,
-                    block_q: int = 1024, block_k: int = 512) -> torch.Tensor:
+                    softcap: float = 0.0, block_q: int = 1024,
+                    block_k: int = 512) -> torch.Tensor:
     """Differentiable GQA attention over the full sequence, ``q
     [B,Sq,Hq,dh]``, ``k/v [B,Sk,Hkv,dh]`` -> ``[B,Sq,Hq,dh]`` in q's
     dtype: causal, ``window`` > 0 to a sliding window, or with
-    ``causal=False`` bidirectional. ``block_k`` halves until it divides
+    ``causal=False`` bidirectional; ``softcap`` > 0 soft-caps each key
+    block's scores before its mask, as the reference's. ``block_k`` halves until it divides
     ``Sk`` and ``block_q`` until it divides ``Sq``, as the reference's."""
     if is_dtensor(q):
         (q_, k_, v_), wrap = on_shards((q, k, v), (0, 2),
                                        divides=_split_heads(k))
         return wrap(train_attention(q_, k_, v_, causal=causal,
-                                    window=window, block_q=block_q,
-                                    block_k=block_k), q.shape)
+                                    window=window, softcap=softcap,
+                                    block_q=block_q, block_k=block_k),
+                    q.shape)
     B, Sq, Hq, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     while Sk % block_k:
@@ -139,25 +151,30 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = qg.permute(0, 2, 3, 1, 4)                     # [B,Hkv,G,Sq,dh]
     outs = [checkpoint(_attention_q_chunk,
                        qg[:, :, :, i:i + block_q], k, v, i, causal=causal,
-                       window=window, block_k=block_k, use_reentrant=False)
+                       window=window, softcap=softcap, block_k=block_k,
+                       use_reentrant=False)
             for i in range(0, Sq, block_q)]
     out = torch.cat(outs, 3).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dh)
     return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: int | torch.Tensor) -> torch.Tensor:
+                     length: int | torch.Tensor,
+                     softcap: float = 0.0) -> torch.Tensor:
     """Single-position attention: q [B,1,Hq,dh] vs cache k/v [B,T,Hkv,dh].
 
     ``length`` (int or ``[B]`` tensor) masks the valid cache prefix. The
     logits ``[B, Hkv, G, T]`` pass ``decode_logits_constraint`` (the
-    identity unless a launcher installs it).
+    identity unless a launcher installs it), then the scale and, with
+    ``softcap`` > 0, the soft-cap, before the mask.
     """
     B, _, Hq, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     qg = _split_gqa(q, Hkv)[:, 0].float()                 # [B,Hkv,G,dh]
     s = decode_logits_constraint(
         torch.einsum("bkgd,btkd->bkgt", qg, k.float())) / math.sqrt(dh)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     tpos = torch.arange(T, device=q.device)[None, :]
     # a host int compares as a scalar: no host-to-device copy per step
     ln = length[:, None] if torch.is_tensor(length) else length

@@ -42,13 +42,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.activations import activation_constraint
+from repro_torch.distributed.activations import (activation_constraint,
+                                                 decode_state_constraint)
 
 from .attention import blocked_attention, decode_attention, train_attention
 from .config import ModelConfig
 from .layers import chunked_ce_loss, dense_init_, embed_init_, rope_angles
-from .transformer import (MLP, Attention, Norm, _dtype, _param,
-                          check_supported, param_specs)
+from .transformer import MLP, Attention, Norm, _dtype, _param, param_specs
 
 
 class EncBlock(nn.Module):
@@ -122,7 +122,6 @@ class EncDec(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         cfg.validate()
-        check_supported(cfg)
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not "
                              "encdec")
@@ -227,13 +226,24 @@ class EncDec(nn.Module):
     def init_decode_state(self, batch_size: int, max_len: int,
                           enc_len: int = 0) -> dict:
         """Zeroed self K/V ``[L, B, max_len, Hkv, dh]`` and cross K/V
-        ``[L, B, enc_len or max_len, Hkv, dh]``, ``pos`` 0."""
+        ``[L, B, enc_len or max_len, Hkv, dh]``, ``pos`` 0, through
+        ``decode_state_constraint`` (the identity unless a dry-run cell
+        installs it)."""
         cfg = self.cfg
         kv = lambda T: {k: torch.zeros(
             (cfg.n_layers, batch_size, T, cfg.n_kv_heads, cfg.head_dim),
             dtype=self.dtype, device=self.device) for k in ("k", "v")}
-        return {"self_kv": kv(max_len), "cross_kv": kv(enc_len or max_len),
-                "pos": 0}
+        return decode_state_constraint(
+            {"self_kv": kv(max_len), "cross_kv": kv(enc_len or max_len),
+             "pos": 0}, self.decode_state_specs)
+
+    def decode_state_specs(self) -> dict:
+        """The logical axes of every leaf of :meth:`init_decode_state`'s
+        state: the reference's, whose K/V are stacked over the layers as
+        the port's are."""
+        kv = ("layers", "batch", "kv_seq", "kv_heads_s", None)
+        return {"self_kv": {"k": kv, "v": kv},
+                "cross_kv": {"k": kv, "v": kv}, "pos": ()}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,

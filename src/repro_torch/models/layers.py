@@ -114,7 +114,8 @@ def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
     freqs = _freqs(half, theta, positions3.device)
     sel = torch.repeat_interleave(
         torch.arange(3, device=positions3.device),
-        torch.tensor(sections, device=positions3.device))   # slot -> coord
+        torch.tensor(sections, device=positions3.device),
+        output_size=half)                                   # slot -> coord
     coord = torch.movedim(positions3, 0, -1).float()         # [..., 3]
     return coord[..., sel] * freqs
 

@@ -60,8 +60,9 @@ def dispatch_plan(ids: torch.Tensor, n_experts: int, C: int):
     e_flat = ids.reshape(G, -1)
     order = torch.argsort(e_flat, dim=1, stable=True)
     es = torch.gather(e_flat, 1, order)
-    counts = torch.zeros((G, n_experts), dtype=es.dtype, device=es.device)
-    counts.scatter_add_(1, es, torch.ones_like(es))
+    counts = torch.zeros((G, n_experts), dtype=es.dtype,
+                         device=es.device).scatter_add(
+        1, es, torch.ones_like(es))
     starts = torch.cumsum(counts, 1) - counts
     rank = (torch.arange(es.shape[1], device=es.device)[None]
             - torch.gather(starts, 1, es))
@@ -92,8 +93,8 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     # per weight reads each expert's weights once for the whole batch
     rows = torch.arange(B, device=x.device)[:, None]
     toks = torch.div(order, top_k, rounding_mode="floor")
-    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[rows, dest] = x[rows, toks]
+    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype,
+                      device=x.device).index_put((rows, dest), x[rows, toks])
     eb = buf[:, :E * C].reshape(B, E, C, D)
     h = f(torch.einsum("becd,edf->becf", eb, p["wg"])) \
         * torch.einsum("becd,edf->becf", eb, p["wu"])
@@ -101,9 +102,8 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     y_e = torch.cat([y_e, torch.zeros((B, 1, D), dtype=y_e.dtype,
                                       device=y_e.device)], 1)
     y_sorted = y_e[rows, dest]                               # [B, S*k, D]
-    y_tok = torch.empty_like(y_sorted)
-    y_tok[rows, order] = y_sorted                            # token order
-    y_tok = y_tok.reshape(B, S, top_k, D)
+    y_tok = torch.empty_like(y_sorted).index_put(            # token order
+        (rows, order), y_sorted).reshape(B, S, top_k, D)
     wk = w.reshape(B, S, top_k, 1).to(y_tok.dtype)
     y = torch.sum(y_tok * wk, dim=2)
     if "shared" in p:

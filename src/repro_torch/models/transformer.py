@@ -50,9 +50,10 @@ add; they are the identity unless the sharded train step installs
 them. :func:`param_specs` gives each parameter the
 reference's logical axes, without its leading ``"layers"``. Parameters
 are built with ``requires_grad=False``; a model for training turns it on
-(``build_model(..., trainable=True)``). Logit soft-capping raises
-``NotImplementedError`` (ROADMAP queue 1 item 6: the flash kernel has no
-soft-cap).
+(``build_model(..., trainable=True)``). Attention logit soft-capping
+(``cfg.attn_logit_softcap`` > 0) reaches every attention route, as the
+reference's: the flash kernel at prefill (its capped instantiations),
+``decode_attention`` and ``train_attention``.
 """
 
 from __future__ import annotations
@@ -64,9 +65,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.distributed.activations import (activation_constraint,
                                                  attn_constraint,
+                                                 decode_state_constraint,
                                                  grad_as_forward,
                                                  matmul_input_constraint,
-                                                 replicate)
+                                                 replicate, split_evenly)
 
 from .attention import blocked_attention, decode_attention, train_attention
 from .config import ModelConfig
@@ -97,12 +99,17 @@ def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build."""
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(
-            f"{cfg.name}: attention logit soft-capping is not ported: the "
-            "flash kernel has no soft-cap (ROADMAP queue 1 item 6)")
+#: each mixer's decode-state leaves -> their logical axes (the
+#: reference's ``decode_state_specs`` without the leading ``"layers"``)
+STATE_SPECS = {
+    "attn": {"k": ("batch", "kv_seq", "kv_heads_s", None),
+             "v": ("batch", "kv_seq", "kv_heads_s", None)},
+    "mamba": {"conv": ("batch", None, "inner"), "h": ("batch", "inner", None)},
+    "mlstm": {"conv": ("batch", None, "inner"),
+              "C": ("batch", None, None, None), "n": ("batch", None, None),
+              "m": ("batch", None)},
+    "slstm": {k: ("batch", "embed") for k in ("h", "c", "n", "m")},
+}
 
 
 def param_specs(model: nn.Module) -> dict:
@@ -182,6 +189,7 @@ class Attention(nn.Module):
         q = y @ self.wq
         if self.bq is not None:
             q = q + self.bq
+        q = split_evenly(q, 2, self.n_heads)
         return q.reshape(*y.shape[:2], self.n_heads, self.head_dim)
 
     def kv(self, y: torch.Tensor):
@@ -190,6 +198,7 @@ class Attention(nn.Module):
         if self.bk is not None:
             k, v = k + self.bk, v + self.bv
         sh = (*y.shape[:2], self.n_kv_heads, self.head_dim)
+        k, v = (split_evenly(t, 2, self.n_kv_heads) for t in (k, v))
         return k.reshape(sh), v.reshape(sh)
 
     def qkv(self, y: torch.Tensor, angles: torch.Tensor | None):
@@ -359,7 +368,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         cfg.validate()
-        check_supported(cfg)
         if cfg.family == "encdec":
             raise ValueError(f"{cfg.name}: the encoder-decoder family is "
                              "built by repro_torch.models.encdec")
@@ -433,7 +441,10 @@ class Transformer(nn.Module):
 
     def init_decode_state(self, batch_size: int, max_len: int) -> dict:
         """Zeroed caches ``[B, T, Hkv, dh]`` per attention layer (``T`` =
-        :func:`cache_len`), zeroed carries per recurrent layer, ``pos`` 0."""
+        :func:`cache_len`), zeroed carries per recurrent layer, ``pos`` 0,
+        on the model's device (on ``meta`` for a model built there: shapes
+        and dtypes, no storage), through ``decode_state_constraint`` (the
+        identity unless a dry-run cell installs it)."""
         T = cache_len(self.cfg, max_len)
         sh = (batch_size, T, self.cfg.n_kv_heads, self.cfg.head_dim)
         zeros = lambda: torch.zeros(sh, dtype=self.dtype, device=self.device)
@@ -449,7 +460,17 @@ class Transformer(nn.Module):
                 blocks.append(mlstm_state_init(batch_size, blk.mix.p()))
             else:
                 blocks.append(slstm_state_init(batch_size, blk.mix.p()))
-        return {"blocks": blocks, "pos": 0}
+        return decode_state_constraint({"blocks": blocks, "pos": 0},
+                                       self.decode_state_specs)
+
+    def decode_state_specs(self) -> dict:
+        """The logical axes of every leaf of :meth:`init_decode_state`'s
+        state, ``{"blocks": [one dict a layer], "pos": ()}``: the
+        reference's ``decode_state_specs`` without the leading
+        ``"layers"`` of its period-stacked leaves, as :func:`param_specs`
+        gives the parameters'."""
+        return {"blocks": [dict(STATE_SPECS[blk.kind["mix"]])
+                           for blk in self.blocks], "pos": ()}
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, state: dict):
@@ -471,7 +492,8 @@ class Transformer(nn.Module):
                 slot = pos % T if self.cfg.sliding_window else pos
                 st["k"][:, slot] = k[:, 0]
                 st["v"][:, slot] = v[:, 0]
-                o = decode_attention(q, st["k"], st["v"], min(pos + 1, T))
+                o = decode_attention(q, st["k"], st["v"], min(pos + 1, T),
+                                     softcap=self.cfg.attn_logit_softcap)
                 o = o.reshape(B, 1, -1) @ blk.mix.wo
             else:
                 if mix == "mamba":
@@ -508,7 +530,8 @@ class Transformer(nn.Module):
             if mix == "attn":
                 q, k, v = blk.mix.qkv(y, angles)
                 o = blocked_attention(q, k, v,
-                                      window=self.cfg.sliding_window)
+                                      window=self.cfg.sliding_window,
+                                      softcap=self.cfg.attn_logit_softcap)
                 o = o.reshape(B, S, -1) @ blk.mix.wo
                 T = st["k"].shape[1]
                 if S >= T:
@@ -539,8 +562,10 @@ class Transformer(nn.Module):
         mix = blk.kind["mix"]
         if mix == "attn":
             q, k, v = attn_constraint(*blk.mix.qkv(y, angles))
-            o = train_attention(q, k, v, window=self.cfg.sliding_window)
-            o = o.reshape(B, S, -1) @ blk.mix.wo
+            o = train_attention(q, k, v, window=self.cfg.sliding_window,
+                                softcap=self.cfg.attn_logit_softcap)
+            # the gradient reaches the flatten in the heads' layout
+            o = grad_as_forward(o.reshape(B, S, -1)) @ blk.mix.wo
         elif mix == "mamba":
             o = apply_mamba_train(blk.mix.p(), y, blk.mix.d_state)
         elif mix == "mlstm":

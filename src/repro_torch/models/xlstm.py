@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.activations import on_shards
+from repro_torch.distributed.activations import on_shards, split_evenly
 
 from .mamba import _pick_chunk
 
@@ -103,6 +103,7 @@ def _mlstm_qkv(p: dict, xc: torch.Tensor, xv: torch.Tensor):
     """q, k (from ``xc``; k scaled by 1/sqrt(dh)) and v (from ``xv``)
     ``[..., H, dh]`` in float32."""
     H, dh = p["w_q"].shape[:2]
+    xc, xv = (split_evenly(t, -1, H) for t in (xc, xv))
     xch = xc.reshape(*xc.shape[:-1], H, dh)
     xvh = xv.reshape(*xv.shape[:-1], H, dh)
     q = torch.einsum("...hk,hkv->...hv", xch, p["w_q"]).float()
@@ -278,6 +279,7 @@ def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple,
     one = _one(c) if one is None else one
     B, D = h.shape
     _, H, dh, _ = p["r"].shape
+    h = split_evenly(h, 1, H)
     rec = torch.einsum("bhk,ghkv->gbhv", h.reshape(B, H, dh).to(p["r"].dtype),
                        p["r"])
     rec = rec.reshape(4, B, D).transpose(0, 1).reshape(B, 4 * D)

@@ -1492,3 +1492,108 @@ def test_cuda_one_rank_nccl_sharded_step_matches_the_unsharded(cuda,
             assert torch.equal(m.cpu(), codec.decompress_int8(q, sc))
     finally:
         dist.destroy_process_group()
+
+
+# B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, dtype, view, cap: every
+# route of the capped kernel (bf16 on wgmma at dh 128, 160 and 256; bf16 on
+# a view no tensor map takes, packed first; f32 on the split route at dh 128
+# and 256), causal, windowed and bidirectional
+FLASH_SOFTCAP_CASES = [
+    (2, 200, 200, 8, 2, 128, True, 0, 0, torch.bfloat16, "bshd", 2.0),
+    (1, 70, 333, 8, 1, 128, True, 64, 263, torch.bfloat16, "bhsd", 1.0),
+    (2, 200, 200, 8, 2, 160, True, 0, 0, torch.bfloat16, "bshd", 2.0),
+    (2, 65, 190, 8, 2, 160, False, 0, 0, torch.bfloat16, "bhsd", 3.0),
+    (2, 300, 300, 16, 4, 256, True, 100, 0, torch.bfloat16, "bshd", 2.0),
+    (1, 200, 200, 4, 1, 256, True, 0, -100, torch.bfloat16, "bhsd", 1.5),
+    (2, 100, 100, 8, 2, 64, True, 0, 0, torch.bfloat16, "packed", 2.0),
+    (1, 150, 64, 4, 1, 192, True, 16, 60, torch.bfloat16, "packed", 1.0),
+    (2, 200, 200, 8, 2, 128, True, 0, 0, torch.float32, "bshd", 2.0),
+    (2, 65, 190, 8, 2, 128, False, 0, 0, torch.float32, "bhsd", 3.0),
+    (2, 300, 300, 16, 4, 256, True, 100, 0, torch.float32, "bshd", 2.0),
+    (1, 129, 250, 32, 4, 256, True, 40, 121, torch.float32, "bhsd", 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hq,Hkv,dh,causal,window,q_offset,dtype,view,cap",
+    FLASH_SOFTCAP_CASES)
+def test_cuda_flash_attention_softcap_vs_plain(cuda, B, Sq, Sk, Hq, Hkv, dh,
+                                               causal, window, q_offset,
+                                               dtype, view, cap):
+    """The soft-capped kernel on every route against
+    ``flash_attention_ref(softcap=)``: bf16 within one bf16 ulp (+1e-6),
+    f32 within 2e-5. The launch moves the cap's counter beside its
+    route's (and the packs or splits the route runs), and the capped
+    output differs from the cap-free one by far more than the limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(17)
+    rnd = lambda h, n: torch.randn((B, n, h, dh), generator=g,
+                                   device=cuda).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in (rnd(Hq, Sq), rnd(Hkv, Sk),
+                                           rnd(Hkv, Sk)))
+    if view == "bhsd":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    elif view == "packed":
+        q, k, v = (_strided(t.contiguous(), 3, 0) for t in (q, k, v))
+    which = fk.route(q, k, v)
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "split_f32")
+    packs = sum(fk.packed(q, k, v)) if which == "wgmma" else 0
+    assert packs == (3 if view == "packed" else 0)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    n0 = _build.counts()
+    got = fk.flash_attention_fwd(q, k, v, softcap=cap, **kw)
+    torch.cuda.synchronize()
+    n1 = _build.counts()
+    moved = {c: n1[c] - n0.get(c, 0) for c in n1 if n1[c] != n0.get(c, 0)}
+    assert moved == {"flash_attention": 1, "flash_attention_softcap": 1,
+                     fk.route_counter(which).name: 1,
+                     **({"split_bf16x3": 3} if which == "split_f32"
+                        else {}),
+                     **({"pack_bf16": packs} if packs else {})}
+    want = flash_attention_ref(q, k, v, softcap=cap, **kw)
+    free = flash_attention_ref(q, k, v, **kw)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert got.stride() == q.stride() or view == "packed"
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-5
+        assert (want - free).abs().max().item() > 100 * 2e-5
+    else:
+        assert _bf16_ulp_ratio(got, want) <= 1.0
+        assert _bf16_ulp_ratio(free, want) > 100
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dtype", [
+    (64, torch.bfloat16), (80, torch.bfloat16), (128, torch.bfloat16),
+    (160, torch.bfloat16), (192, torch.bfloat16), (256, torch.bfloat16),
+    (64, torch.float32), (128, torch.float32), (192, torch.float32),
+    (256, torch.float32)])
+def test_cuda_flash_attention_softcap_resources(cuda, dh, dtype):
+    """Each capped instantiation spills nothing and keeps the cap-free
+    one's block shape (threads, shared bytes, blocks an SM); the cap-free
+    one spills nothing either."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    free = fk.tensor_core_resources(dh, dtype)
+    cap = fk.tensor_core_resources(dh, dtype, softcap=True)
+    assert free["local_bytes"] == 0 and cap["local_bytes"] == 0, (free, cap)
+    for key in ("threads", "shared_bytes", "blocks_per_sm"):
+        assert cap[key] == free[key], (key, free, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [-1.0, float("inf"), float("nan")])
+def test_cuda_flash_attention_softcap_refuses_bad_caps(cuda, cap):
+    """A cap that is neither 0 nor finite and positive raises before any
+    launch: no counter moves."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t = torch.ones((1, 4, 70, 64), device=cuda, dtype=torch.bfloat16)
+    n0 = dict(_build.counts())
+    with pytest.raises(ValueError, match="softcap"):
+        fk.flash_attention_fwd(t, t[:, :2], t[:, :2], softcap=cap)
+    assert _build.counts() == n0

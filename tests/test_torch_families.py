@@ -296,8 +296,32 @@ def test_prefill_equals_prefill_then_decode(arch):
 
 
 def test_softcap_still_raises_naming_the_roadmap():
+    """Soft-capping once raised here (ROADMAP queue 1 item 6); now the
+    capped model builds and serves: qwen2-72b's smoke config with
+    ``attn_logit_softcap`` 1.0 (a cap that bites at smoke widths), its
+    prefill logits and state and ``N_DECODE`` decode steps against the
+    reference's at 5e-3, the cap moving the prefill logits by more than
+    100x that (``test_torch_softcap.py`` holds each attention route)."""
+    model, params, free = _models("qwen2_72b")
+    jc = dataclasses.replace(jcfg.get_smoke_config("qwen2_72b"),
+                             attn_logit_softcap=1.0)
     cfg = dataclasses.replace(tcfg.get_smoke_config("qwen2_72b"),
-                              attn_logit_softcap=30.0)
-    from repro_torch.models import build_model
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        build_model(cfg, device=CPU)
+                              attn_logit_softcap=1.0)
+    jm = j_build(jc)
+    tm = model_params_from_jax(jax.tree.map(np.asarray, params), cfg, CPU)
+    toks, _ = _inputs("qwen2_72b", seed=4)
+    jlog, jst = jax.jit(jm.prefill, static_argnums=2)(
+        params, {"tokens": jnp.asarray(toks[:, :S])}, MAX_LEN)
+    tlog, tst = tm.prefill(torch.from_numpy(toks[:, :S]), MAX_LEN)
+    _close(tlog, jlog)
+    flog, _ = free.prefill(torch.from_numpy(toks[:, :S]), MAX_LEN)
+    assert float((flog - tlog).abs().max()) > 100 * TOL
+    want, got = _ref_state_leaves(cfg, jst), _port_state_leaves(cfg, tst)
+    assert want.keys() == got.keys()
+    for key in want:
+        _close(got[key], want[key])
+    step = jax.jit(jm.decode_step)
+    for t in range(S, S + N_DECODE):
+        jlog, jst = step(params, jnp.asarray(toks[:, t]), jst)
+        tlog, tst = tm.decode_step(torch.from_numpy(toks[:, t]), tst)
+        _close(tlog, jlog)
