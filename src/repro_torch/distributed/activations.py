@@ -115,6 +115,21 @@ def replicate(x):
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+def reduce_partial(x):
+    """A DTensor with its partial sums reduced (each ``Partial`` placement
+    made ``Replicate``, its shards kept): the all-reduce GSPMD inserts
+    before an op that needs whole values; any other tensor as it is.
+    PyTorch 2.11's DTensor can neither turn a shard into a partial sum
+    (an add of a sharded bias to a partial product asks for it) nor
+    differentiate the reverse, so code that lays a DTensor out anew
+    passes it here first."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def split_evenly(x, dim: int, groups: int):
     """``x`` itself, or, for a DTensor whose dim ``dim`` is sharded over
     mesh dims whose product does not divide ``groups`` (the heads that
@@ -162,6 +177,72 @@ def grad_as_forward(x):
     return _GradAs.apply(x, tuple(x.placements))
 
 
+class _LocalParam(torch.autograd.Function):
+    """A DTensor parameter as the whole plain tensor every rank holds;
+    backward sums each rank's gradient over the mesh dims ``split`` (those
+    that split the activations the local code read beside it) and lays
+    it out as the parameter, so that it leaves reduced."""
+
+    @staticmethod
+    def forward(ctx, p, split):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh, ctx.placements, ctx.split = (p.device_mesh, p.placements,
+                                               split)
+        return p.redistribute(p.device_mesh,
+                              [Replicate()] * p.device_mesh.ndim).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        pl = [Partial() if i in ctx.split else Replicate()
+              for i in range(ctx.mesh.ndim)]
+        g = DTensor.from_local(g.contiguous(), ctx.mesh, pl)
+        return g.redistribute(ctx.mesh, ctx.placements), None
+
+
+class _Wrap:
+    """What :func:`on_shards` hands back beside the local tensors."""
+
+    def __init__(self, mesh=None, placements=None):
+        self.mesh, self.placements = mesh, placements
+
+    def __call__(self, t, shape, dims=None):
+        """The local result ``t`` as the DTensor of global ``shape``,
+        placed as the first input was; ``dims`` maps each kept dim of
+        that input to the dim of ``t`` it lands on, for a result of
+        another layout."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor, Shard
+        pl = self.placements
+        if dims is not None:
+            pl = [Shard(dims[p.dim]) if p.is_shard() else p for p in pl]
+        full = torch.empty(shape, device="meta")
+        return DTensor.from_local(t.contiguous(), self.mesh, pl,
+                                  shape=full.shape, stride=full.stride())
+
+    def local(self, t):
+        """This rank's shard of another DTensor ``t`` laid out as the
+        first input was (``t`` shares its leading dims)."""
+        if self.mesh is None:
+            return t
+        return reduce_partial(t).redistribute(self.mesh,
+                                              self.placements).to_local()
+
+    def params(self, p: dict) -> dict:
+        """The DTensor parameters ``p`` (a mapping) as whole plain tensors
+        for the local code (:class:`_LocalParam`): each rank's gradient of
+        one is summed over the mesh dims that split the local inputs
+        before it reaches the parameter, as GSPMD reduces the gradient of
+        a replicated weight read by batch-sharded rows."""
+        if self.mesh is None:
+            return p
+        split = tuple(i for i, q in enumerate(self.placements)
+                      if q.is_shard())
+        return {k: _LocalParam.apply(v, split) if is_dtensor(v) else v
+                for k, v in p.items()}
+
+
 def on_shards(tensors, dims: tuple, divides=None):
     """Hand DTensors to code that runs on each rank's own shards, as
     GSPMD runs an op that is independent along some dims (attention over
@@ -171,12 +252,17 @@ def on_shards(tensors, dims: tuple, divides=None):
     only its shards of tensor dims ``dims`` kept (``divides(placements)``
     may narrow them: it returns the dims to keep). Returns ``(local
     tensors, wrap)``, where ``wrap(local, shape)`` is the DTensor of those
-    placements and global ``shape``. The local code reads no parameter:
-    a gradient it makes is its rank's own. Tensors that are not DTensors
-    pass through, and ``wrap`` is the identity."""
+    placements and global ``shape`` (``wrap(local, shape, dims)`` for a
+    result of another layout), ``wrap.local(t)`` this rank's shard of
+    another DTensor of the same leading layout, and ``wrap.params(p)``
+    the parameters the local code reads, whole on every rank, their
+    gradients summed over the ranks that split the inputs. A gradient
+    the local code makes of anything else is its rank's own. Tensors
+    that are not DTensors pass through, and ``wrap``, ``wrap.local`` and
+    ``wrap.params`` are the identity."""
     if not tensors or not is_dtensor(tensors[0]):
-        return list(tensors), lambda t, shape: t
-    from torch.distributed.tensor import DTensor, Replicate
+        return list(tensors), _Wrap()
+    from torch.distributed.tensor import Replicate
 
     mesh = tensors[0].device_mesh
     keep = lambda pl, ds: [p if p.is_shard() and p.dim in ds
@@ -184,14 +270,9 @@ def on_shards(tensors, dims: tuple, divides=None):
     pl = keep(tensors[0].placements, dims)
     if divides is not None:
         pl = keep(pl, divides(pl))
-    loc = [t.redistribute(mesh, pl).to_local() for t in tensors]
-
-    def wrap(t, shape):
-        full = torch.empty(shape, device="meta")
-        return DTensor.from_local(t.contiguous(), mesh, pl,
-                                  shape=full.shape, stride=full.stride())
-
-    return loc, wrap
+    loc = [reduce_partial(t).redistribute(mesh, pl).to_local()
+           for t in tensors]
+    return loc, _Wrap(mesh, tuple(pl))
 
 
 def clear_hooks() -> None:

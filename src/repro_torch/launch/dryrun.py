@@ -7,13 +7,18 @@ Per cell this script:
      on ``make_production_mesh``'s ``(16, 16)`` or ``(2, 16, 16)`` mesh,
      over torch's fake process group of 256 or 512 ranks (set up in
      :func:`main`, never at import), as this process's rank 0;
-  2. runs it once on ``meta`` tensors placed as DTensors (shapes, dtypes
+  2. runs it on ``meta`` tensors placed as DTensors (shapes, dtypes
      and placements; no storage, no kernel, no device): a run that ends
      proves the sharding rules coherent for the port's step, as the
-     reference's lower + compile does for XLA's;
+     reference's lower + compile does for XLA's. A cell with a
+     recurrence (Mamba's train scan, the mLSTM and sLSTM) runs it once
+     with each time loop cut to one step, then once more for each loop
+     with that loop at two (a fresh cell each time);
   3. records this rank's argument and output bytes, exact, from the local
      shards of the placed inputs and outputs; its FLOPs, collectives and
-     HBM-write estimate (``launch.op_analysis``); the step's whole FLOPs;
+     HBM-write estimate (``launch.op_analysis``), every step of every
+     loop counted (a recurrence's by its trip count, ``loop_counts``);
+     the step's whole FLOPs; the cell's wall time (``wall_s``);
   4. writes one JSON a cell under ``--out`` with the reference's keys
      (cells already there are skipped unless ``--force``).
 
@@ -22,13 +27,13 @@ the record's ``not_ported`` list, never estimated: ``lower_s`` and
 ``compile_s`` (nothing is lowered or compiled), ``memory.temp_bytes``,
 ``memory.alias_bytes`` and ``memory.peak_nonarg_bytes`` (XLA's buffer
 assignment), ``cost.transcendentals`` and ``cost.bytes_accessed`` (its
-cost analysis) and ``loop_counts`` (eager PyTorch has no loop to scale:
-every count already includes every iteration). ``collectives`` and
-``collectives_loop_aware`` are the same tally, for that reason. A host
+cost analysis). ``loop_counts`` gives each recurrence's trip count and
+executions; every other loop runs whole, so ``collectives`` and
+``collectives_loop_aware`` are the same tally, every step counted. A host
 int of the port's state (the decode state's ``pos``, the train step's
 ``step``) is not an argument on the device and counts 0 bytes, where the
-reference's int32 scalars count 4. The run prints no time or rate: it
-runs no kernel.
+reference's int32 scalars count 4. The run times no kernel: ``wall_s``
+is the host's time to build and count the cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape decode_32k
@@ -41,6 +46,7 @@ import argparse
 import json
 import math
 import os
+import time
 import traceback
 
 import torch
@@ -53,7 +59,7 @@ from repro_torch.launch.steps import build_cell
 #: the record's keys that only XLA's compiler gives
 NOT_PORTED = ["lower_s", "compile_s", "memory.temp_bytes",
               "memory.alias_bytes", "memory.peak_nonarg_bytes",
-              "cost.transcendentals", "cost.bytes_accessed", "loop_counts"]
+              "cost.transcendentals", "cost.bytes_accessed"]
 
 
 def local_bytes(tree) -> int:
@@ -84,17 +90,25 @@ def _world_for(multi_pod: bool) -> int:
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
-             smoke: bool = False) -> dict:
+             smoke: bool = False, loop_aware: bool = True) -> dict:
     """One cell's record, on the production mesh of the process group
     :func:`main` (or a test) started: a fake group of 256 ranks, or 512
-    with ``multi_pod``."""
+    with ``multi_pod``. The recurrences' counts are loop-aware (one step
+    and two, scaled: ``op_analysis.analyze_step``), unless
+    ``loop_aware=False`` runs every step of them."""
     import torch.distributed as dist
     if dist.get_world_size() != _world_for(multi_pod):
         raise ValueError(f"run_cell: the process group has "
                          f"{dist.get_world_size()} ranks; the "
                          f"{'multi' if multi_pod else 'single'}-pod mesh "
                          f"needs {_world_for(multi_pod)}")
+    t0 = time.perf_counter()
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+
+    def fresh():
+        c = build_cell(arch, shape, mesh, multi_pod=multi_pod, smoke=smoke)
+        return c.step_fn, c.args
+
     cell = build_cell(arch, shape, mesh, multi_pod=multi_pod, smoke=smoke)
     rec = {"arch": arch, "shape": shape,
            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
@@ -113,7 +127,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         token, state = cell.args
         in_batch = _placed_bytes({"token": token}, {"token": sh["token"]},
                                  mesh)
-    out, counts = analyze_step(cell.step_fn, *cell.args)
+    out, counts = analyze_step(cell.step_fn, *cell.args,
+                               fresh=fresh if loop_aware else None)
     params = local_bytes(list(cell.model.parameters()))
     if cell.kind == "train":
         carried = local_bytes(opt_state)          # placed by the step
@@ -136,11 +151,12 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         "collectives": counts["collectives"],
         "collectives_loop_aware": counts["collectives"],
         "hbm_write_bytes": counts["hbm_write_bytes"],
-        "loop_counts": None,
+        "loop_counts": counts["loop_counts"],
         "n_chips": math.prod(mesh.shape),
         "flops_global": counts["flops_global"],
         "collectives_comm_debug": counts["collectives_comm_debug"],
         "n_ops": counts["n_ops"],
+        "wall_s": time.perf_counter() - t0,
         "not_ported": list(NOT_PORTED),
     })
     return rec
@@ -194,7 +210,8 @@ def main() -> None:
             if "memory" in rec:
                 gb = rec["memory"]["argument_bytes"] / 2**30
                 print(f"  ok: per-rank args={gb:.2f} GiB "
-                      f"flops/rank={rec['cost']['flops']:.3g}")
+                      f"flops/rank={rec['cost']['flops']:.3g} "
+                      f"wall {rec['wall_s']:.1f} s")
             elif "skip" in rec:
                 print(f"  skipped: {rec['skip']}")
     finally:

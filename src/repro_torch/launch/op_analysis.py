@@ -9,11 +9,12 @@ as DTensors on the cell's mesh (``launch.steps.build_cell``), and counts
 what this rank executes, through three dispatch modes:
 
 * **FLOPs.** ``torch.utils.flop_counter``'s formulas (matrix products,
-  convolutions, attention) over every op this rank runs on its local
-  shards (``flops``). ``FlopCounterMode`` over the same step counts each
-  DTensor op at its global shapes and each plain op as it runs, which is
-  the whole step's count (``flops_global``): the figure to hold against
-  an analytic count.
+  convolutions, attention, and the selective scan's own,
+  ``kernels.selective_scan.ops.scan_flops``) over every op this rank
+  runs on its local shards (``flops``). ``FlopCounterMode`` over the
+  same step counts each DTensor op at its global shapes and each plain
+  op as it runs, which is the whole step's count (``flops_global``): the
+  figure to hold against an analytic count.
 * **Collectives.** Each ``_c10d_functional`` collective that DTensor's
   redistributions issue on this rank's shards, by the reference's type
   names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
@@ -29,9 +30,15 @@ The ops DTensor runs on fake tensors to learn an output's global shape
 Eager PyTorch runs every iteration of every loop (the trunk's layers,
 the attention's key blocks, the loss's chunks), so these counts already
 include each loop's trip count: there is no trip-count parser to port.
-Eager PyTorch also fuses nothing, so the write estimate counts every
-elementwise op's output where the reference's counts one write a fused
-op: the two write estimates are not comparable across frameworks. The
+The time loops of the recurrences are the exception: a full run of them
+is 32,768 steps a layer at prefill, and each op under the three modes
+costs about 0.1 ms on the host. :func:`analyze_step` given ``fresh`` runs
+them loop-aware instead: one step, then two, scaled to the trip count
+(``models.recurrence``), exactly as a full run counts them (a test holds
+the two equal at a short sequence). Eager PyTorch also fuses nothing, so
+the write estimate counts every elementwise op's output where the
+reference's counts one write a fused op: the two write estimates are
+not comparable across frameworks. The
 reference's ``SKIP_OPS`` list (TPU lowering corrections) has no
 counterpart either.
 """
@@ -116,12 +123,9 @@ class OpTally(TorchDispatchMode):
         return out
 
 
-def analyze_step(fn, *args):
-    """Run ``fn(*args)`` once under the three modes; returns ``(fn's
-    result, counts)``: ``flops`` (this rank's), ``flops_global``,
-    ``collectives`` (type -> count and output bytes, this rank's),
-    ``collectives_comm_debug`` (type -> count), ``hbm_write_bytes`` and
-    ``n_ops`` (this rank's ops on plain tensors)."""
+def _count(fn, args):
+    """Run ``fn(*args)`` once under the three modes: ``(fn's result,
+    counts)``."""
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -141,3 +145,67 @@ def analyze_step(fn, *args):
                  "collectives_comm_debug": debug,
                  "hbm_write_bytes": tally.hbm_write_bytes,
                  "n_ops": tally.n_ops}
+
+
+def _add_steps(total, two, one, n: int):
+    """``total`` plus ``n`` times ``two - one``, key by key (nested
+    dicts; a key one run lacks counts 0 there)."""
+    if isinstance(total, dict) or isinstance(two, dict):
+        total, two, one = (t if isinstance(t, dict) else {}
+                           for t in (total, two, one))
+        return {k: _add_steps(total.get(k, 0), two.get(k, 0),
+                              one.get(k, 0), n)
+                for k in {**total, **two}}
+    return total + n * (two - one)
+
+
+def analyze_step(fn, *args, fresh=None):
+    """Run ``fn(*args)`` under the three modes; returns ``(fn's result,
+    counts)``: ``flops`` (this rank's), ``flops_global``, ``collectives``
+    (type -> count and output bytes, this rank's),
+    ``collectives_comm_debug`` (type -> count), ``hbm_write_bytes``,
+    ``n_ops`` (this rank's ops on plain tensors) and ``loop_counts``.
+
+    Without ``fresh`` every step of every loop runs, and ``loop_counts``
+    is empty. With ``fresh``, a callable that gives a new ``(fn, args)``
+    of the same step (the step mutates what it is given), the counts are
+    loop-aware: the loops of ``models.recurrence`` run one step each;
+    then, for each trip count ``T`` over 1 (and product ``R`` of the trip
+    counts of the loops it runs within), the counts gain ``R (T - 1)``
+    times the difference between two fresh steps, one with the loops of
+    that ``T`` and ``R`` at two steps (the others at one) and one with
+    every loop at one. (The fresh steps are a process's second sight of
+    the cell: the first run of a cell counts a few ops and bytes more,
+    DTensor filling its caches; FLOPs and collectives are the same.)
+    Every step of a recurrence does the same work, so this is every
+    step's count exactly; ``loop_counts``
+    gives each loop's trip count and executions (a layer's loop, a
+    chunk's, a checkpoint's recompute)."""
+    from repro_torch.models import recurrence
+
+    if fresh is None:
+        out, counts = _count(fn, args)
+        return out, {**counts, "loop_counts": {}}
+    recurrence.set_step_caps({})
+    try:
+        out, total = _count(fn, args)
+        trips = recurrence.noted_trips()
+        groups = {}
+        for name, t in trips.items():
+            if t["trip_count"] > 1:
+                outer, runs = t["within"], 1
+                while outer is not None:
+                    runs *= trips[outer]["trip_count"]
+                    outer = trips[outer]["within"]
+                groups.setdefault((t["trip_count"], runs), []).append(name)
+        one = None
+        for (T, runs), names in sorted(groups.items()):
+            if one is None:
+                recurrence.set_step_caps({})
+                _, one = _count(*fresh())
+            recurrence.set_step_caps(dict.fromkeys(names, 2))
+            _, two = _count(*fresh())
+            total = _add_steps(total, two, one, runs * (T - 1))
+    finally:
+        recurrence.set_step_caps(None)
+    return out, {**total, "loop_counts": trips}

@@ -14,10 +14,14 @@ caller, :func:`opt_state_shardings` for the state), the batch by
 ``build_cell`` installs them for a train cell. Forward, backward and the
 update then run on DTensors, whose sharding propagation stands in for
 GSPMD's; a plain tensor the model makes (a mask, the rotary angles) is
-taken as replicated (``implicit_replication``). Attention and the mLSTM
-recurrence, independent over batch rows and heads, run on each rank's
-shards (``distributed.activations.on_shards``), as GSPMD runs them
-after the reference's head-sharding hook. Where DTensor has no working
+taken as replicated (``implicit_replication``). Attention, independent
+over batch rows and heads, and the recurrences (the mLSTM's over rows
+and heads; the sLSTM's and the Mamba train scan's over rows, the
+parameters they read whole on every rank, their gradients summed over
+the ranks) run on each rank's shards
+(``distributed.activations.on_shards``), as GSPMD runs them after the
+reference's head-sharding hook; the MoE experts' products are batched
+products DTensor places. Where DTensor has no working
 strategy for an op of the route, that op's operand or result is
 redistributed to ``Replicate()`` there, the collective GSPMD would
 insert: the cross-entropy's gather of the target logits from
@@ -37,7 +41,8 @@ inputs (``meta`` tensors from ``configs.input_specs``, where the
 reference's are ``ShapeDtypeStruct``s) and the PartitionSpec parts of
 every input, from the logical-axis rules. The train cell is
 :func:`make_sharded_train_step` (AdamW, Adafactor for the 400B MoE); the
-prefill cell ``model.prefill`` over the whole context; the decode cell
+prefill cell :func:`make_sharded_prefill`, ``model.prefill`` over the
+whole context; the decode cell
 one ``decode_step`` and the ``argmax`` of its logits against a state of
 the shape's context, placed by the model's ``decode_state_specs``. A
 cell's ``step_fn(*args)`` places its inputs by those parts first, as a
@@ -351,6 +356,37 @@ def install_cell_hooks(mesh, rules: dict, kind: str) -> None:
                 st, state_parts(specs, st, mesh, rules), mesh))
 
 
+def make_sharded_prefill(model, mesh, rules: dict):
+    """``prefill(batch, max_len) -> (logits, state)``: ``model.prefill`` on
+    the DeviceMesh ``mesh`` under the serve ``rules``, as the dry run's
+    prefill cell runs it. The parameters are placed at the first call
+    (:func:`place_params`), each batch (``tokens``, and ``frames``,
+    ``positions3`` or ``embeds`` where the model takes them, on the
+    model's device) by ``batch_shardings``, under the prefill cell's hooks
+    (:func:`install_cell_hooks`); the logits and the decode state come
+    back as DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def prefill(batch: dict, max_len: int):
+        if not _dtensor(model.embed):
+            place_params(model, mesh, rules)
+        install_cell_hooks(mesh, rules, "prefill")
+        try:
+            with implicit_replication(), torch.no_grad():
+                bsh = batch_shardings(batch, mesh, rules)
+                b = {k: _place(v, mesh, bsh[k]) for k, v in batch.items()}
+                if model.cfg.family == "encdec":
+                    return model.prefill(b["tokens"], max_len,
+                                         frames=b["frames"])
+                return model.prefill(b["tokens"], max_len,
+                                     positions3=b.get("positions3"),
+                                     embeds=b.get("embeds"))
+        finally:
+            acts.clear_hooks()
+
+    return prefill
+
+
 def build_cell(arch: str, shape: str, mesh, multi_pod: bool = False,
                smoke: bool = False, opt_override: str | None = None,
                extra_rules: dict | None = None) -> Cell:
@@ -409,19 +445,10 @@ def build_cell(arch: str, shape: str, mesh, multi_pod: bool = False,
                     model=model)
 
     if sp.kind == "prefill":
-        shardings["batch"] = bsh = batch_shardings(spec["batch"], mesh,
-                                                   rules)
-
-        def prefill_step(batch):
-            b = {k: _place(v, mesh, bsh[k]) for k, v in batch.items()}
-            if cfg.family == "encdec":
-                return model.prefill(b["tokens"], sp.seq_len,
-                                     frames=b["frames"])
-            return model.prefill(b["tokens"], sp.seq_len,
-                                 positions3=b.get("positions3"),
-                                 embeds=b.get("embeds"))
-
-        return Cell(arch, shape, cfg, sp.kind, serve(prefill_step),
+        shardings["batch"] = batch_shardings(spec["batch"], mesh, rules)
+        prefill = make_sharded_prefill(model, mesh, rules)
+        return Cell(arch, shape, cfg, sp.kind,
+                    lambda batch: prefill(batch, sp.seq_len),
                     (spec["batch"],), shardings=shardings, model=model)
 
     state = spec["batch"]["state"]

@@ -65,7 +65,16 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """GQA attention over the full sequence -> ``[B,Sq,Hq,dh]``: causal
     (``window`` > 0: each query sees its last ``window`` keys) or, with
     ``causal=False``, bidirectional; ``softcap`` > 0 soft-caps the
-    scores."""
+    scores. CUDA DTensors go to the kernel, which takes plain tensors, on
+    each rank's batch rows and heads (``on_shards``, as GSPMD runs
+    attention); on any other device a DTensor runs the plain version as
+    DTensor ops, whose products the dry run counts whole."""
+    if is_dtensor(q) and q.is_cuda:
+        (q_, k_, v_), wrap = on_shards((q, k, v), (0, 2),
+                                       divides=_split_heads(k))
+        return wrap(flash_attention(q_, k_, v_, causal=causal,
+                                    window=window, softcap=softcap),
+                    q.shape)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)
 

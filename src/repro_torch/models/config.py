@@ -125,7 +125,9 @@ class ModelConfig:
         for knob in (self.attn_every if self.family == "hybrid" else 1,
                      self.moe_every or 1, self.slstm_every or 1):
             period = math.lcm(period, knob)
-        # the pattern must tile n_layers exactly
+        # the pattern must tile n_layers exactly; a stack shorter than
+        # the pattern is one period (the reference's loop never ends there)
+        period = min(period, max(self.n_layers, 1))
         while self.n_layers % period:
             period += 1
         return period

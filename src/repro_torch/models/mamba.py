@@ -9,8 +9,9 @@ selective scan ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``,
 :func:`apply_mamba` (prefill) always takes the reference's kernel route
 (``REPRO_OPT=sscan_kernel``, ``models/mamba.py:88-104`` there): the (dt, B,
 C) projections for the whole sequence, then
-:func:`repro_torch.kernels.selective_scan.selective_scan` — the CUDA kernel
-for CUDA tensors, the step recurrence for CPU tensors — then the ``D`` skip
+:func:`repro_torch.kernels.selective_scan.selective_scan` — one op: the
+CUDA kernel for CUDA tensors, the step recurrence for CPU tensors, placed
+by its own rule on DTensors — then the ``D`` skip
 term and the ``silu(z)`` gate; its final state is the decode carry. The
 kernel is forward-only. :func:`apply_mamba_train` is the route of
 ``Transformer.train_forward``: the reference's default route (without
@@ -34,7 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.activations import on_shards, reduce_partial
 from repro_torch.kernels.selective_scan import selective_scan
+
+from .recurrence import cat_chunks, stack_steps, steps
 
 #: parameter leaves kept in float32 whatever the model dtype
 F32_LEAVES = ("a_log", "dt_bias", "d_skip")
@@ -95,7 +99,9 @@ def _pick_chunk(S: int, target: int = 128) -> int:
 
 def _dbc(p: dict, xc: torch.Tensor, dt_rank: int, N: int):
     """conv'd activations -> (dt [.., di], B [.., N], C [.., N]) in f32."""
-    dbc = (xc @ p["w_xdbc"]).float()
+    # on DTensors the product's partial sums over the channels are
+    # reduced whole before the split, as GSPMD reduces them
+    dbc = reduce_partial(xc @ p["w_xdbc"]).float()
     dt_lowrank, b, c = torch.split(dbc, [dt_rank, N, N], dim=-1)
     dt = F.softplus(dt_lowrank @ p["w_dt"].float() + p["dt_bias"])
     return dt, b, c
@@ -115,7 +121,11 @@ def _conv_in(p: dict, x: torch.Tensor):
     S = x.shape[1]
     xi, z = (x @ p["w_in"]).chunk(2, dim=-1)                 # [B,S,di]
     K = p["conv"].shape[0]
-    xpad = F.pad(xi, (0, 0, K - 1, 0))                       # causal pad on S
+    # the causal pad on S, on each rank's rows and channels (PyTorch
+    # 2.11's DTensor pad gives a placement short of the mesh's dims)
+    (xi_loc,), wrap = on_shards((xi,), (0, 2))
+    xpad = wrap(F.pad(xi_loc, (0, 0, K - 1, 0)),
+                (xi.shape[0], S + K - 1, xi.shape[2]))
     xc = sum(xpad[:, k:k + S] * p["conv"][k] for k in range(K))
     return F.silu(xc), z, xpad
 
@@ -142,35 +152,40 @@ def _scan_chunk(h: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ``[B,C,di]``, b/c ``[B,C,N]`` -> (``h`` after the chunk, y
     ``[B,C,di]``), in float32."""
     ys = []
-    for t in range(dt.shape[1]):
+    for t in range(steps("mamba", dt.shape[1], "mamba.chunks")):
         da = torch.exp(dt[:, t][..., None] * a)              # [B,di,N]
         dbx = dt[:, t][..., None] * b[:, t][:, None, :] * x[:, t][..., None]
         h = da * h + dbx
         # C_t h_t as a product and a sum: torch's CPU einsum / bmm are
         # many times slower at these small shapes
         ys.append((h * c[:, t, None, :]).sum(-1))
-    return h, torch.stack(ys, 1)
+    return h, stack_steps(ys, dt.shape[1])
 
 
 def apply_mamba_train(p: dict, x: torch.Tensor,
                       d_state: int) -> torch.Tensor:
     """Training: ``x [B,S,D] -> y [B,S,D]``, differentiable; the scan in
-    checkpointed chunks of :func:`_pick_chunk` steps."""
+    checkpointed chunks of :func:`_pick_chunk` steps (on DTensors, on each
+    rank's rows, every channel: ``distributed.activations.on_shards``,
+    ``a`` whole on every rank, its gradient summed over the ranks that
+    split the rows)."""
     B, S, _ = x.shape
     xc, z, _ = _conv_in(p, x)
     dt, bb, cc = _dbc(p, xc, p["w_dt"].shape[0], d_state)
-    a = -torch.exp(p["a_log"])
-    xf = xc.float()
-    h = torch.zeros((B, xc.shape[-1], d_state), dtype=torch.float32,
-                    device=x.device)
+    shape = dt.shape
+    (dt, bb, cc, xf), wrap = on_shards((dt, bb, cc, xc.float()), (0,))
+    a = wrap.params({"a": -torch.exp(p["a_log"])})["a"]
+    h = torch.zeros((dt.shape[0], dt.shape[-1], d_state),
+                    dtype=torch.float32, device=x.device)
     C = _pick_chunk(S)
     ys = []
-    for i in range(0, S, C):
-        sl = slice(i, i + C)
+    for j in range(steps("mamba.chunks", S // C)):
+        sl = slice(j * C, (j + 1) * C)
         h, y = checkpoint(_scan_chunk, h, dt[:, sl], bb[:, sl], cc[:, sl],
                           xf[:, sl], a, use_reentrant=False)
         ys.append(y)
-    return _gate_out(p, torch.cat(ys, 1), xc, z, x.dtype)
+    return _gate_out(p, wrap(cat_chunks(ys, S // C), shape), xc, z,
+                     x.dtype)
 
 
 def mamba_state_init(batch: int, p: dict, d_state: int) -> dict:

@@ -25,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.activations import on_shards
+
 from .layers import activation, apply_mlp
 
 
@@ -77,6 +79,21 @@ def _shared(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return apply_mlp(s["wg"], s["wu"], s["wd"], x, act)
 
 
+def _expert_products(eb: torch.Tensor, p: dict, f, B: int, E: int, C: int,
+                     D: int) -> torch.Tensor:
+    """The experts on their buffer rows ``eb [B, E*C, D]`` -> ``[B, E*C,
+    D]``: each expert's rows of every group as one contiguous ``[E, B*C,
+    D]`` operand, then ``f(x wg) * (x wu)`` and its ``wd`` as batched
+    products over the experts. Contiguous operands and ``reshape`` (never
+    a view across a permute) keep one form for plain tensors and for
+    DTensors, whose local shards an ``einsum``'s internal views refuse."""
+    xe = eb.reshape(B, E, C, D).permute(1, 0, 2, 3).contiguous() \
+        .reshape(E, B * C, D)
+    h = f(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    y = torch.bmm(h, p["wd"]).reshape(E, B, C, D)
+    return y.permute(1, 0, 2, 3).contiguous().reshape(B, E * C, D)
+
+
 def apply_moe(p: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
               dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,21 +106,24 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int,
     w, ids, aux = router(x.reshape(B * S, D), p["wr"], top_k)
     C = capacity(S, top_k, E, capacity_factor, dropless)
     order, _, _, dest = dispatch_plan(ids.reshape(B, S, top_k), E, C)
+    # the scatter into the buffers and the gather back run on each rank's
+    # groups (on DTensors: on_shards), as the reference vmaps a group
+    (xg, order, dest), wrap = on_shards((x, order, dest), (0,))
+    b = xg.shape[0]
+    rows = torch.arange(b, device=xg.device)[:, None]
+    toks = torch.div(order, top_k, rounding_mode="floor")
     # every group's buffer in one [B, E*C + 1, D] tensor, so one product
     # per weight reads each expert's weights once for the whole batch
-    rows = torch.arange(B, device=x.device)[:, None]
-    toks = torch.div(order, top_k, rounding_mode="floor")
-    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype,
-                      device=x.device).index_put((rows, dest), x[rows, toks])
-    eb = buf[:, :E * C].reshape(B, E, C, D)
-    h = f(torch.einsum("becd,edf->becf", eb, p["wg"])) \
-        * torch.einsum("becd,edf->becf", eb, p["wu"])
-    y_e = torch.einsum("becf,efd->becd", h, p["wd"]).reshape(B, E * C, D)
-    y_e = torch.cat([y_e, torch.zeros((B, 1, D), dtype=y_e.dtype,
+    buf = torch.zeros((b, E * C + 1, D), dtype=x.dtype,
+                      device=xg.device).index_put((rows, dest), xg[rows, toks])
+    buf = wrap(buf, (B, E * C + 1, D))
+    y_e = wrap.local(_expert_products(buf[:, :E * C], p, f, B, E, C, D))
+    y_e = torch.cat([y_e, torch.zeros((b, 1, D), dtype=y_e.dtype,
                                       device=y_e.device)], 1)
-    y_sorted = y_e[rows, dest]                               # [B, S*k, D]
+    y_sorted = y_e[rows, dest]                               # [b, S*k, D]
     y_tok = torch.empty_like(y_sorted).index_put(            # token order
-        (rows, order), y_sorted).reshape(B, S, top_k, D)
+        (rows, order), y_sorted).reshape(b, S, top_k, D)
+    y_tok = wrap(y_tok, (B, S, top_k, D))
     wk = w.reshape(B, S, top_k, 1).to(y_tok.dtype)
     y = torch.sum(y_tok * wk, dim=2)
     if "shared" in p:

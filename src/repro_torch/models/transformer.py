@@ -535,9 +535,14 @@ class Transformer(nn.Module):
                 o = o.reshape(B, S, -1) @ blk.mix.wo
                 T = st["k"].shape[1]
                 if S >= T:
+                    # rolled so that token j sits at slot j % T; a shift
+                    # of 0 copies as it is (PyTorch 2.11's DTensor has no
+                    # roll)
                     shift = (S - T) % T
-                    st["k"].copy_(torch.roll(k[:, S - T:], shift, 1))
-                    st["v"].copy_(torch.roll(v[:, S - T:], shift, 1))
+                    roll = ((lambda t: torch.roll(t, shift, 1)) if shift
+                            else (lambda t: t))
+                    st["k"].copy_(roll(k[:, S - T:]))
+                    st["v"].copy_(roll(v[:, S - T:]))
                 else:
                     st["k"][:, :S] = k
                     st["v"][:, :S] = v

@@ -18,11 +18,14 @@ at 0 (not -inf), as there::
 The reference runs prefill and training through one chunked ``lax.scan``
 with remat. Here prefill (:func:`apply_mlstm`, :func:`apply_slstm`) is a
 plain loop over time (the projections, conv and gates computed for the
-whole sequence first), and the train route (:func:`apply_mlstm_train`,
-:func:`apply_slstm_train`, for ``Transformer.train_forward``) runs the same
-loop in chunks of ``mamba._pick_chunk(S)`` steps, each under
-``torch.utils.checkpoint``, so that backward keeps the ``[B, H, dh, dh]``
-matrix memory only at chunk boundaries, as the reference's
+whole sequence first; on DTensors the loop runs on each rank's rows, the
+mLSTM's on its heads too, through ``distributed.activations.on_shards``,
+and the dry run counts it loop-aware through ``models.recurrence``), and
+the train route (:func:`apply_mlstm_train`, :func:`apply_slstm_train`,
+for ``Transformer.train_forward``) runs the same loop in chunks of
+``mamba._pick_chunk(S)`` steps, each under ``torch.utils.checkpoint``,
+so that backward keeps the ``[B, H, dh, dh]`` matrix memory only at
+chunk boundaries, as the reference's
 ``jax.checkpoint`` on its chunk does. The recurrences run in float32,
 each step in few ops (the outer product and the reads of ``C`` as a
 broadcast product and a batched matmul; the inputs unbound once a
@@ -45,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.activations import on_shards, split_evenly
 
 from .mamba import _pick_chunk
+from .recurrence import cat_chunks, stack_steps, step_inputs, steps
 
 #: parameter leaves kept in float32 whatever the model dtype
 F32_LEAVES = ("f_bias", "i_bias", "skip", "bias")
@@ -141,17 +145,20 @@ def _mlstm_cell(C, n, m, q, k, v, i_raw, f_raw, one=None):
     return num / den[..., None], C, n, m_new
 
 
-def _mlstm_scan(C, n, m, q, k, v, i_raw, f_raw):
+def _mlstm_scan(C, n, m, q, k, v, i_raw, f_raw, within=None):
     """The cell over every step of ``q``/``k``/``v [B,T,H,dh]`` and the
     gates ``[B,T,H]``: ``(h [B,T,H,dh], C, n, m)``. The inputs are
     unbound once, so that backward stacks their gradients once instead
-    of a full-size zero tensor a step."""
+    of a full-size zero tensor a step. ``within``: the loop this one runs
+    in (``models.recurrence``)."""
     one, hs = _one(C), []
-    for qt, kt, vt, it, ft in zip(*(t.unbind(1) for t in
+    T = q.shape[1]
+    run = steps("mlstm", T, within)
+    for qt, kt, vt, it, ft in zip(*(step_inputs(t, run) for t in
                                     (q, k, v, i_raw, f_raw))):
         h, C, n, m = _mlstm_cell(C, n, m, qt, kt, vt, it, ft, one)
         hs.append(h)
-    return torch.stack(hs, 1), C, n, m
+    return stack_steps(hs, T), C, n, m
 
 
 def _mlstm_out(p: dict, h, xc, o, gate, dtype):
@@ -178,15 +185,46 @@ def _mlstm_in(p: dict, x: torch.Tensor):
     return apad, xc, gate, (q, k, v, i_raw, f_raw), o
 
 
+def _mlstm_recur(x: torch.Tensor, seq: tuple, chunked: bool):
+    """The recurrence over ``seq`` (:func:`_mlstm_in`'s, ``[B,S,H,..]``)
+    from the zero carry, on each rank's rows and heads when they are
+    DTensors (``distributed.activations.on_shards``), in one pass or, with
+    ``chunked``, in checkpointed chunks of ``_pick_chunk(S)`` steps:
+    ``(h [B,S,H*dh], C, n, m)``."""
+    B, S, H = seq[0].shape[:3]
+    shape = seq[0].shape
+    seq, wrap = on_shards(seq, (0, 2))
+    b, _, h_loc, dh = seq[0].shape
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=x.device)
+    carry = (z(b, h_loc, dh, dh), z(b, h_loc, dh), z(b, h_loc))
+    if not chunked:
+        h, *carry = _mlstm_scan(*carry, *seq)
+    else:
+        Ck = _pick_chunk(S)
+        hs = []
+        for j in range(steps("mlstm.chunks", S // Ck)):
+            i = j * Ck
+            h, *carry = checkpoint(_mlstm_scan, *carry,
+                                   *(t[:, i:i + Ck] for t in seq),
+                                   within="mlstm.chunks",
+                                   use_reentrant=False)
+            hs.append(h)
+        h = cat_chunks(hs, S // Ck)
+    # the carry's batch and head dims are q's dims 0 and 2
+    C, n, m = (wrap(t, (B, H) + tuple(t.shape[2:]), {0: 0, 2: 1})
+               for t in carry)
+    return wrap(h, shape).reshape(B, S, -1), C, n, m
+
+
 def apply_mlstm(p: dict, x: torch.Tensor, return_state: bool = False):
     """Prefill: ``x [B,S,D] -> [B,S,D]``; with ``return_state`` also the
     decode carry ``{"conv" [B,K-1,di], "C" [B,H,dh,dh], "n" [B,H,dh],
-    "m" [B,H]}`` (float32 but ``conv``) at step S."""
-    B, S, _ = x.shape
+    "m" [B,H]}`` (float32 but ``conv``) at step S. On DTensors the
+    recurrence runs on each rank's rows and heads."""
+    S = x.shape[1]
     apad, xc, gate, seq, o = _mlstm_in(p, x)
-    st = mlstm_state_init(B, p)
-    h, C, n, m = _mlstm_scan(st["C"], st["n"], st["m"], *seq)
-    out = _mlstm_out(p, h.reshape(B, S, -1), xc, o, gate, x.dtype)
+    h, C, n, m = _mlstm_recur(x, seq, chunked=False)
+    out = _mlstm_out(p, h, xc, o, gate, x.dtype)
     if not return_state:
         return out
     K = p["conv"].shape[0]
@@ -198,21 +236,8 @@ def apply_mlstm_train(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Training: ``x [B,S,D] -> [B,S,D]``, differentiable; the recurrence
     in checkpointed chunks of ``_pick_chunk(S)`` steps (on DTensors, on
     each rank's rows and heads: ``distributed.activations.on_shards``)."""
-    B, S, _ = x.shape
     _, xc, gate, seq, o = _mlstm_in(p, x)
-    shape = seq[0].shape
-    seq, wrap = on_shards(seq, (0, 2))
-    b, _, H, dh = seq[0].shape
-    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=x.device)
-    carry = (z(b, H, dh, dh), z(b, H, dh), z(b, H))
-    Ck = _pick_chunk(S)
-    hs = []
-    for i in range(0, S, Ck):
-        h, *carry = checkpoint(_mlstm_scan, *carry,
-                               *(t[:, i:i + Ck] for t in seq),
-                               use_reentrant=False)
-        hs.append(h)
-    h = wrap(torch.cat(hs, 1), shape).reshape(B, S, -1)
+    h = _mlstm_recur(x, seq, chunked=True)[0]
     return _mlstm_out(p, h, xc, o, gate, x.dtype)
 
 
@@ -293,23 +318,50 @@ def _slstm_step(p: dict, xw_t: torch.Tensor, carry: tuple,
     return h_new, c_new, n_new, m_new
 
 
-def _slstm_scan(p: dict, xw: torch.Tensor, *carry):
+def _slstm_scan(p: dict, xw: torch.Tensor, *carry, within=None):
     """The step over every ``xw [B,T,4D]``: ``(h [B,T,D], *carry)``
     (``xw`` unbound once, as in :func:`_mlstm_scan`)."""
     one, hs = _one(carry[0]), []
-    for xw_t in xw.unbind(1):
+    T = xw.shape[1]
+    for xw_t in step_inputs(xw, steps("slstm", T, within)):
         carry = _slstm_step(p, xw_t, carry, one)
         hs.append(carry[0])
-    return (torch.stack(hs, 1), *carry)
+    return (stack_steps(hs, T), *carry)
+
+
+def _slstm_recur(p: dict, xw: torch.Tensor, chunked: bool):
+    """The recurrence over ``xw [B,S,4D]`` from the zero carry, on each
+    rank's rows when it is a DTensor (``on_shards``; ``r`` and ``bias``
+    whole on every rank, their gradients summed over the ranks that split
+    the rows), in one pass or, with ``chunked``, in checkpointed chunks of
+    ``_pick_chunk(S)`` steps: ``(h [B,S,D], (h, c, n, m))``, the carry
+    ``[B, D]`` each."""
+    B, S = xw.shape[:2]
+    D = p["w_dn"].shape[0]
+    (xw,), wrap = on_shards((xw,), (0,))
+    pl = wrap.params({"r": p["r"], "bias": p["bias"]})
+    carry = tuple(torch.zeros((xw.shape[0], D), dtype=torch.float32,
+                              device=xw.device) for _ in range(4))
+    if not chunked:
+        h, *carry = _slstm_scan(pl, xw, *carry)
+    else:
+        Ck = _pick_chunk(S)
+        hs = []
+        for j in range(steps("slstm.chunks", S // Ck)):
+            i = j * Ck
+            h, *carry = checkpoint(_slstm_scan, pl, xw[:, i:i + Ck],
+                                   *carry, within="slstm.chunks",
+                                   use_reentrant=False)
+            hs.append(h)
+        h = cat_chunks(hs, S // Ck)
+    return wrap(h, (B, S, D)), tuple(wrap(t, (B, D)) for t in carry)
 
 
 def apply_slstm(p: dict, x: torch.Tensor, return_state: bool = False):
-    """Prefill: ``x [B,S,D] -> [B,S,D]``, sequential over S; with
-    ``return_state`` also the carry ``{"h", "c", "n", "m"}`` (each
-    ``[B, D]`` float32)."""
-    xw = x @ p["w"]                                          # [B,S,4D]
-    h, *carry = _slstm_scan(p, xw, *slstm_state_init(x.shape[0],
-                                                     p).values())
+    """Prefill: ``x [B,S,D] -> [B,S,D]``, sequential over S (on DTensors,
+    on each rank's rows); with ``return_state`` also the carry ``{"h",
+    "c", "n", "m"}`` (each ``[B, D]`` float32)."""
+    h, carry = _slstm_recur(p, x @ p["w"], chunked=False)
     out = h.to(x.dtype) @ p["w_dn"]
     if not return_state:
         return out
@@ -318,17 +370,10 @@ def apply_slstm(p: dict, x: torch.Tensor, return_state: bool = False):
 
 def apply_slstm_train(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Training: ``x [B,S,D] -> [B,S,D]``, differentiable; the recurrence
-    in checkpointed chunks of ``_pick_chunk(S)`` steps."""
-    S = x.shape[1]
-    xw = x @ p["w"]
-    carry = tuple(slstm_state_init(x.shape[0], p).values())
-    Ck = _pick_chunk(S)
-    hs = []
-    for i in range(0, S, Ck):
-        h, *carry = checkpoint(_slstm_scan, p, xw[:, i:i + Ck], *carry,
-                               use_reentrant=False)
-        hs.append(h)
-    return torch.cat(hs, 1).to(x.dtype) @ p["w_dn"]
+    in checkpointed chunks of ``_pick_chunk(S)`` steps (on DTensors, on
+    each rank's rows)."""
+    h, _ = _slstm_recur(p, x @ p["w"], chunked=True)
+    return h.to(x.dtype) @ p["w_dn"]
 
 
 def slstm_state_init(batch: int, p: dict) -> dict:

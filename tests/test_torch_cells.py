@@ -345,3 +345,108 @@ def test_dryrun_cli_flags_are_the_reference_s():
     assert flags("repro_torch/launch/dryrun.py") == \
         flags("repro/launch/dryrun.py") == [
             "--arch", "--shape", "--all", "--multi-pod", "--out", "--force"]
+
+
+# --------------------------------------------------------------------------
+# the MoE and recurrent cells (the expert products as batched products,
+# the Mamba scan as one op, the recurrences on each rank's shards and
+# their counts loop-aware)
+# --------------------------------------------------------------------------
+MOE_AND_RECURRENT_CELLS = [
+    ("phi35_moe_42b", "prefill_32k"), ("phi35_moe_42b", "train_4k"),
+    ("llama4_maverick_400b", "prefill_32k"),
+    ("llama4_maverick_400b", "train_4k"), ("jamba_v01_52b", "prefill_32k"),
+    ("jamba_v01_52b", "train_4k"), ("xlstm_350m", "prefill_32k"),
+    ("xlstm_350m", "train_4k")]
+
+#: each recurrent cell's loops and their trip counts (a prefill's loop is
+#: the whole sequence; a train route's 32 chunks of 128 steps); the Mamba
+#: prefill has none: its scan is one op
+LOOPS = {("jamba_v01_52b", "train_4k"): {"mamba.chunks": 32, "mamba": 128},
+         ("xlstm_350m", "prefill_32k"): {"mlstm": 32768, "slstm": 32768},
+         ("xlstm_350m", "train_4k"): {"mlstm.chunks": 32, "mlstm": 128,
+                                      "slstm.chunks": 32, "slstm": 128}}
+
+
+def _argument_bytes(cell, sizes) -> int:
+    """The expected argument bytes of a cell: its parameters', optimizer
+    state's (AdamW's per-layer moments, Adafactor's stacked
+    accumulators) and batch's local shards, or its token's and state's."""
+    model, sh = cell.model, cell.shardings
+    want = sum(_local_numel(p.shape, sh["params"][n], sizes)
+               * p.element_size() for n, p in model.named_parameters())
+    if cell.kind == "train":
+        opt, batch, _ = cell.args
+        want += _expected_bytes(batch, sh["batch"], sizes)
+        for part in ("m", "v"):
+            for key, leaves in opt.get(part, {}).items():
+                parts = sh["opt_state"][part][key]
+                parts = parts[1:] if stacked(key) else parts
+                want += sum(_local_numel(t.shape, parts, sizes)
+                            * t.element_size() for t in leaves)
+        for key, acc in opt.get("acc", {}).items():
+            want += sum(_local_numel(t.shape, sh["opt_state"]["acc"][key][n],
+                                     sizes) * t.element_size()
+                        for n, t in acc.items())
+    elif cell.kind == "prefill":
+        want += _expected_bytes(cell.args[0], sh["batch"], sizes)
+    else:
+        token, state = cell.args
+        want += _local_numel(token.shape, sh["token"],
+                             sizes) * token.element_size()
+        want += _expected_bytes(state, sh["state"], sizes)
+    return want
+
+
+@pytest.mark.parametrize("arch,shape", MOE_AND_RECURRENT_CELLS)
+def test_moe_and_recurrent_cells_finish(fake_group, arch, shape):
+    """The eight cells the expert products' views and the per-step
+    recurrences held back, at the smoke widths and the shape's own
+    sequence: each finishes with its argument bytes exact, collectives,
+    FLOPs, and the trip count of each recurrence it scales."""
+    from repro_torch.launch import dryrun
+    sizes = {"data": 16, "model": 16}
+    rec = dryrun.run_cell(arch, shape, False, smoke=True)
+    json.dumps(rec)
+    cell = tsteps.build_cell(arch, shape, OnePod(), smoke=True)
+    assert rec["memory"]["argument_bytes"] == _argument_bytes(cell, sizes)
+    assert rec["memory"]["output_bytes"] > 0
+    assert rec["cost"]["flops"] > 0 and rec["flops_global"] > 0
+    assert sum(v["count"] for v in rec["collectives"].values()) > 0
+    assert {k: v["count"] for k, v in rec["collectives"].items()} == \
+        rec["collectives_comm_debug"]
+    assert "loop_counts" not in rec["not_ported"]
+    want = LOOPS.get((arch, shape), {})
+    assert {k: v["trip_count"] for k, v in rec["loop_counts"].items()} == \
+        want
+    assert all(v["executions"] > 0 for v in rec["loop_counts"].values())
+
+
+@pytest.mark.parametrize("arch,shape", sorted(LOOPS))
+def test_loop_aware_counts_equal_the_full_run(fake_group, monkeypatch, arch,
+                                              shape):
+    """At a 16-step sequence (the train routes in 4 chunks of 4 steps,
+    so that a loop runs within a loop), the counts scaled from one step
+    and two (``analyze_step(fresh=)``) equal those of the run of every
+    step: this rank's and the step's FLOPs, and the collectives by type,
+    count and bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import mamba, xlstm
+    sp = tcfg.SHAPES[shape]
+    monkeypatch.setitem(tcfg.SHAPES, shape,
+                        tcfg.ShapeSpec(sp.name, 16, sp.global_batch, sp.kind))
+    pick = mamba._pick_chunk
+    for mod in (mamba, xlstm):
+        monkeypatch.setattr(mod, "_pick_chunk", lambda S: pick(S, 4))
+    aware = dryrun.run_cell(arch, shape, False, smoke=True)
+    full = dryrun.run_cell(arch, shape, False, smoke=True, loop_aware=False)
+    assert set(aware["loop_counts"]) == set(LOOPS[(arch, shape)])
+    want = 4 if shape == "train_4k" else 16
+    assert all(v["trip_count"] == want
+               for v in aware["loop_counts"].values())
+    assert full["loop_counts"] == {}
+    assert aware["cost"]["flops"] == full["cost"]["flops"] > 0
+    assert aware["flops_global"] == full["flops_global"]
+    assert aware["collectives"] == full["collectives"]
+    assert aware["collectives_comm_debug"] == full["collectives_comm_debug"]
+    assert aware["memory"] == full["memory"]

@@ -368,7 +368,9 @@ def _step_case(arch, mesh, opt_name="adamw"):
     seen = {}
 
     def capture(grads, st, params, step):
-        seen.update({k: [g.full_tensor() for g in parts]
+        # copied: full_tensor() of a replicated gradient is its local
+        # tensor, which the update's clip then scales in place
+        seen.update({k: [g.full_tensor().clone() for g in parts]
                      for k, parts in grads.items()})
         return update(grads, st, params, step)
 
